@@ -5,18 +5,26 @@
 Phases, in order (each prints its lines; any failure exits non-zero):
   device     require CUDA; print the card's name and power limit (nvidia-smi)
   build      build the hand-written kernels from csrc/ with nvcc
-  kernels    each kernel against its plain PyTorch version at the main path's
+  kernels    each kernel against its plain PyTorch version at the paths'
              per-sample shapes (batch 2), in bf16 (LayerNorm also on the fp32
-             ConvNeXt rows): max abs / relative error against the stated
-             tolerance, median kernel and plain times
+             ConvNeXt rows; attention also with instance labels from META's
+             boxes, one sample masked and one open): max abs / relative error
+             against the stated tolerance, median kernel and plain times
   grounding  UniFusion in fp32 (ConvNeXt's LayerNorms through the kernel) on
              the slice's layout with random phrase embeddings and instance
              masks, seg tokens kept, kernels vs plain_kernels()
-  unet       one full-width UNet forward (B=2, gate 1.0, those 184 grounding
-             tokens) on densified random weights, kernels vs plain_kernels()
+  unet       full-width UNet forwards (B=2, gate 1.0, those 184 grounding
+             tokens) on densified random weights, kernels vs plain_kernels():
+             unmasked, and with the ds1 fusers masked by META's box labels
   slice      random_init + densify + generate (8 images, 50-step PLMS, 4
              instances, mis=0, bf16): warm-up, then timed requests; checks the
-             output and that every kernel launched during the timed run
+             output and that every kernel of the path launched during the
+             timed run
+  mis        the same weights under the "mask" preset with use_masked_att
+             and META's instance masks: generate (8 images, 50 steps,
+             mis=0.36: Multi-Instance Sampler over 5 trajectories, fuser
+             masked by instance labels), warm-up then timed requests, with
+             the same checks
 Then the card's nvidia-smi line, one JSON line describing the kernels and,
 last, the device line {"ok": true, "device": {...}}.
 
@@ -27,6 +35,7 @@ built library, in build/instancediffusion_tpu_torch/<hash>/build.log.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -50,14 +59,21 @@ META = {
     "alpha_type": [0.75, 0.0, 0.25],
 }
 
-# where each kernel lives and which TPU kernel it replaces
+# where each kernel lives and which TPU kernel it replaces; the labeled
+# entries are the same CUDA kernel's LABELED instantiation
 KERNELS = {
     "flash_attention": (
         "cuda", "instancediffusion_tpu_torch/csrc/flash_attention.cu",
         "instancediffusion_tpu/kernels/flash_attention.py:213"),
+    "flash_attention_labeled": (
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention.cu",
+        "instancediffusion_tpu/kernels/flash_attention.py:271"),
     "flash_attention_packed": (
         "cuda", "instancediffusion_tpu_torch/csrc/flash_attention.cu",
         "instancediffusion_tpu/kernels/flash_attention.py:448"),
+    "flash_attention_packed_labeled": (
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention.cu",
+        "instancediffusion_tpu/kernels/flash_attention.py:508"),
     "fused_group_norm": (
         "cuda", "instancediffusion_tpu_torch/csrc/norms.cu",
         "instancediffusion_tpu/kernels/norms.py:125"),
@@ -81,6 +97,15 @@ FP32_REL_TOL = 1e-5
 # summation order differs, carried through 18 blocks and the token MLPs
 GROUNDING_REL_TOL = 1e-4
 UNET_REL_TOL = 5e-2  # whole bf16 UNet, kernels vs plain (rel. to max |eps|)
+
+# kernels each path must launch in its timed requests; no path of either
+# package reaches flash_attention_packed_labeled (labels exist at ds1 only,
+# where the head dim is 40 and attention is split-heads), so it is checked
+# in the kernels phase only
+PLAIN_PATH = ("flash_attention", "flash_attention_packed", "fused_group_norm",
+              "fused_layer_norm", "fused_ff_geglu")
+MIS_PATH = PLAIN_PATH + ("flash_attention_labeled",)
+ONLY_KERNELS_PHASE = {"flash_attention_packed_labeled": "kernels phase only: no path reaches it"}
 
 
 def log(msg: str) -> None:
@@ -118,13 +143,38 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
+def meta_labels(torch, dev, size: int, n_objs: int = 30, seg_tokens: int = 64):
+    """(bits, open) int32 (2, size**2 + 4*n_objs + seg_tokens) fuser labels:
+    sample 0 from the rasters of META's boxes, sample 1 with no instance
+    (fully open, as the CFG null half is)."""
+    from instancediffusion_tpu_torch.kernels.flash_attention import instance_labels
+    from instancediffusion_tpu_torch.ops.instance_mask import rasterize_boxes
+
+    boxes = torch.zeros(2, n_objs, 4, device=dev)
+    boxes[0, :len(META["locations"])] = torch.tensor(META["locations"], device=dev)
+    return instance_labels(rasterize_boxes(boxes, size), n_objs, seg_tokens)
+
+
+def meta_segs(size: int = 512):
+    """One filled ellipse inside each of META's boxes, (size, size) float32
+    instance masks (rows y, columns x)."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    segs = []
+    for x1, y1, x2, y2 in META["locations"]:
+        cx, cy, rx, ry = (x1 + x2) / 2, (y1 + y2) / 2, (x2 - x1) / 2, (y2 - y1) / 2
+        segs.append(((((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2) <= 1).astype(np.float32))
+    return segs
+
+
 def _cases(torch, dev):
-    """(kernel name, label, kernel fn, plain fn, tolerance) at the main
-    path's per-sample shapes, batch 2."""
+    """(kernel name, label, kernel fn, plain fn, tolerance) at the paths'
+    per-sample shapes, batch 2."""
     from instancediffusion_tpu_torch.kernels import flash_attention as fa
     from instancediffusion_tpu_torch.kernels import geglu_ff as ff
     from instancediffusion_tpu_torch.kernels import norms
-    from instancediffusion_tpu_torch.ops.attention import sdpa_xla
+    from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_xla
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf, fp = torch.bfloat16, torch.float32
@@ -149,6 +199,23 @@ def _cases(torch, dev):
             lambda qh=qh, kh=kh, vh=vh, mm=mm: sdpa_xla(qh, kh[:, :, :mm], vh[:, :, :mm]),
             BF16_REL_TOL,
         ))
+    # the masked ds1 fuser: labels of META's boxes at 64x64 (one sample
+    # masked, one open), over 4280 keys and over 4608 with kv_len=4280
+    labels64 = meta_labels(torch, dev, 64)
+    for label, m, kv_len in (("fuser 4096x4280 labeled", 4280, 4280),
+                             ("fuser 4096x4608 kv_len=4280 labeled", 4608, 4280)):
+        q, k, v = randn(2, 4096, 320), randn(2, m, 320), randn(2, m, 320)
+        heads = lambda t: t.reshape(2, t.shape[1], 8, 40).transpose(1, 2)
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        mask = labels_to_dense(*labels64)[:, :, :4096, :kv_len]
+        cases.append((
+            "flash_attention_labeled", label,
+            lambda qh=qh, kh=kh, vh=vh, kv=kv_len: fa.flash_attention(
+                qh, kh, vh, labels=labels64, kv_len=kv),
+            lambda qh=qh, kh=kh, vh=vh, kv=kv_len, mask=mask: sdpa_xla(
+                qh, kh[:, :, :kv], vh[:, :, :kv], mask=mask),
+            BF16_REL_TOL,
+        ))
     # packed attention at ds2 (c=80)
     for label, n, m, kv_len in (("self 1024x1024", 1024, 1024, None),
                                 ("fuser 1024x1208", 1024, 1208, None),
@@ -166,6 +233,22 @@ def _cases(torch, dev):
             lambda q=q, k=k, v=v, kv=kv_len: fa.flash_attention_packed(q, k, v, 8, kv_len=kv),
             plain, BF16_REL_TOL,
         ))
+    # packed attention with labels of META's boxes at a 32x32 raster (1024
+    # visual + 184 grounding keys)
+    labels32 = meta_labels(torch, dev, 32)
+    q, k, v = randn(2, 1024, 640), randn(2, 1208, 640), randn(2, 1208, 640)
+    mask32 = labels_to_dense(*labels32)[:, :, :1024, :1208]
+
+    def plain_packed_labeled(q=q, k=k, v=v):
+        heads = lambda t: t.reshape(2, t.shape[1], 8, 80).transpose(1, 2)
+        out = sdpa_xla(heads(q), heads(k), heads(v), mask=mask32)
+        return out.transpose(1, 2).reshape(2, 1024, 640)
+
+    cases.append((
+        "flash_attention_packed_labeled", "1024x1208 labeled (32x32 raster)",
+        lambda q=q, k=k, v=v: fa.flash_attention_packed(q, k, v, 8, labels=labels32),
+        plain_packed_labeled, BF16_REL_TOL,
+    ))
     # GroupNorm: UNet (eps 1e-5 res/out with SiLU, 1e-6 transformer) and
     # VAE decoder rows (eps 1e-6)
     for n, c, eps, act in ((4096, 320, 1e-5, "silu"), (4096, 320, 1e-6, "none"),
@@ -338,8 +421,11 @@ def phase_grounding(torch, dev, cfg, unet_mod):
     return line, objs_k
 
 
-def phase_unet(torch, dev, cfg, unet_mod, objs1) -> str:
-    """objs1: the (1, G, 768) fp32 grounding tokens of the grounding phase."""
+def phase_unet(torch, dev, cfg, unet_mod, objs1, masked: bool) -> str:
+    """objs1: the (1, G, 768) fp32 grounding tokens of the grounding phase.
+    masked: the ds1 fusers take META's box labels (sample 0 masked, sample
+    1 open) and the labeled kernel must launch."""
+    from instancediffusion_tpu_torch import kernels
     from instancediffusion_tpu_torch.models import unet as unet_lib
     from instancediffusion_tpu_torch.nn.core import plain_kernels
 
@@ -351,10 +437,13 @@ def phase_unet(torch, dev, cfg, unet_mod, objs1) -> str:
     ctx = torch.randn((2, 77, mc.context_dim), generator=g, device=dev).to(torch.bfloat16)
     objs = objs1.expand(2, *objs1.shape[1:])
     n_tok = objs.shape[1]
+    labels = meta_labels(torch, dev, mc.image_size) if masked else None
     with torch.inference_mode():
         run = lambda: unet_lib.apply_unet(unet_mod, mc, x, t, ctx, None, gate_scale=1.0,
-                                          precomputed_objs=objs)
+                                          precomputed_objs=objs, fuser_mask=labels)
+        kernels.reset_launch_counts()
         eps_k = run()
+        labeled = kernels.LAUNCHES.get("flash_attention_labeled", 0)
         with plain_kernels():
             eps_p = run()
         torch.cuda.synchronize()
@@ -363,13 +452,17 @@ def phase_unet(torch, dev, cfg, unet_mod, objs1) -> str:
             ms_p = median_ms(run, reps=5)
     if eps_k.shape != x.shape or not torch.isfinite(eps_k.float()).all():
         raise RuntimeError(f"unet: bad eps {tuple(eps_k.shape)}")
+    if masked != (labeled > 0):
+        raise RuntimeError(f"unet: masked={masked} but {labeled} labeled launches")
     err = (eps_k.float() - eps_p.float()).abs().max().item()
     scale = eps_p.float().abs().max().item()
     rel = err / max(scale, 1e-12)
     if scale == 0.0 or rel > UNET_REL_TOL:
         raise RuntimeError(f"unet: kernels vs plain rel err {rel:.3g} "
                            f"(max |eps| {scale:.3g}) > {UNET_REL_TOL}")
-    return (f"unet: B=2 gate=1.0 tokens={n_tok} max_abs_err={err:.4g} "
+    return (f"unet: B=2 gate=1.0 tokens={n_tok} "
+            f"{f'ds1 fusers masked ({labeled} labeled launches) ' if masked else ''}"
+            f"max_abs_err={err:.4g} "
             f"max|eps|={scale:.4g} rel={rel:.3g} tol={UNET_REL_TOL} "
             f"kernel_fwd_ms={ms_k:.2f} plain_fwd_ms={ms_p:.2f}")
 
@@ -379,34 +472,39 @@ def phase_unet(torch, dev, cfg, unet_mod, objs1) -> str:
 # ---------------------------------------------------------------------------
 
 
-def phase_slice(torch, pipe, card: str) -> tuple[str, dict]:
+def phase_request(torch, pipe, card: str, name: str, meta: dict, mis: float,
+                  must_launch: tuple) -> tuple[str, dict]:
+    """generate(8 images, 50 steps, `mis`): one warm-up request, then two
+    timed requests with the launch counts set to 0 just before them; checks
+    the images and that every kernel of `must_launch` launched."""
     import numpy as np
 
     from instancediffusion_tpu_torch import kernels
 
     n_img = N_IMAGES
     t0 = time.perf_counter()
-    imgs = pipe.generate(META, num_images=n_img, steps=STEPS, mis=0.0, seed=0)
+    imgs = pipe.generate(meta, num_images=n_img, steps=STEPS, mis=mis, seed=0)
     warm_s = time.perf_counter() - t0
     kernels.reset_launch_counts()
     times = []
     for seed in (1, 2):
         t0 = time.perf_counter()
-        imgs = pipe.generate(META, num_images=n_img, steps=STEPS, mis=0.0, seed=seed)
+        imgs = pipe.generate(meta, num_images=n_img, steps=STEPS, mis=mis, seed=seed)
         times.append(time.perf_counter() - t0)
     launches = dict(kernels.LAUNCHES)
     size = pipe.image_size
     if imgs.shape != (n_img, size, size, 3) or imgs.dtype != np.uint8:
-        raise RuntimeError(f"slice: images {imgs.shape} {imgs.dtype}")
+        raise RuntimeError(f"{name}: images {imgs.shape} {imgs.dtype}")
     if int(imgs.max()) == int(imgs.min()):
-        raise RuntimeError("slice: constant images")
-    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
+        raise RuntimeError(f"{name}: constant images")
+    missing = [k for k in must_launch if launches.get(k, 0) <= 0]
     if missing:
-        raise RuntimeError(f"slice: kernels never launched: {missing} ({launches})")
+        raise RuntimeError(f"{name}: kernels never launched: {missing} ({launches})")
     s_img = min(times) / n_img
-    line = (f"slice: generate B={n_img} steps={STEPS} PLMS mis=0 bf16: "
-            f"warm-up {warm_s:.2f}s, requests {', '.join(f'{t:.3f}s' for t in times)}, "
-            f"{s_img:.4f} s/image on {card}; launches {launches}")
+    line = (f"{name}: generate B={n_img} steps={STEPS} PLMS mis={mis} bf16 "
+            f"masked={pipe.cfg.model.use_masked_att}: warm-up {warm_s:.2f}s, requests "
+            f"{', '.join(f'{t:.3f}s' for t in times)}, {s_img:.4f} s/image on {card}; "
+            f"launches {launches}")
     return line, launches
 
 
@@ -445,18 +543,32 @@ def main() -> int:
     log(f"init: random_init + densify {time.perf_counter() - t0:.1f}s")
     line, objs = phase_grounding(torch, dev, cfg, pipe.unet)
     log(line)
-    log(phase_unet(torch, dev, cfg, pipe.unet, objs))
-    line, launches = phase_slice(torch, pipe, card)
+    log(phase_unet(torch, dev, cfg, pipe.unet, objs, masked=False))
+    log(phase_unet(torch, dev, cfg, pipe.unet, objs, masked=True))
+    line, launches_plain = phase_request(torch, pipe, card, "slice", META, 0.0, PLAIN_PATH)
+    log(line)
+
+    # the paper's default sampling: MIS (mis=0.36) with the fusers masked by
+    # instance labels, on the same weights, with instance masks as segs
+    mcfg = apply_test_preset(Config(), "mask")
+    mcfg = dataclasses.replace(mcfg, model=dataclasses.replace(mcfg.model, use_masked_att=True))
+    mpipe = InstanceDiffusionPipeline(mcfg, pipe.unet, pipe.vae, pipe.clip, pipe.tokenizer)
+    line, launches_mis = phase_request(torch, mpipe, card, "mis", dict(META, segs=meta_segs()),
+                                       0.36, MIS_PATH)
     log(line)
 
     kernels_json = []
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]
-        kernels_json.append({
+        by_path = {"slice": launches_plain.get(name, 0), "mis": launches_mis.get(name, 0)}
+        entry = {
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-        })
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        }
+        if name in ONLY_KERNELS_PHASE:
+            entry["checked"] = ONLY_KERNELS_PHASE[name]
+        kernels_json.append(entry)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_json}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 // Forward flash attention on strided (batch, head, row) views, bf16 in/out.
 //
 // Replaces instancediffusion_tpu/kernels/flash_attention.py::flash_attention
-// (_flash_kernel) and ::flash_attention_packed (_flash_kernel_packed): the
-// two compute the same function on the (B,H,N,c) and (B,N,H*c) layouts, so
+// (_flash_kernel, and _flash_kernel_labeled with labels) and
+// ::flash_attention_packed (_flash_kernel_packed, _flash_kernel_packed_labeled):
+// they compute the same function on the (B,H,N,c) and (B,N,H*c) layouts, so
 // one kernel takes base pointers plus (batch, head, row) element strides and
 // serves both. The head dim must be contiguous.
 //
@@ -23,6 +24,17 @@
 // registers start before the current tile computes. Keys at or above
 // kv_len are never loaded and score -inf, so a caller may pass a ragged kv
 // sequence or one pre-padded past kv_len.
+//
+// Instance labels (template flag LABELED; the unlabeled instantiation is the
+// kernel without them): int32 bits and open per sequence position, one row
+// of label_stride entries per batch, shared by all heads. Score (i, j) is
+// kept iff open_i | open_j | (bits_i & bits_j) != 0 | i == j, on top of the
+// kv_len test. Each lane loads the labels of its two q rows once; each key
+// tile's 64 labels travel beside its K/V tile (register prefetch, then
+// shared memory). A labeled row's early tiles may be entirely masked, so
+// while its running max is still -inf the softmax subtracts 0 instead
+// (exp2f(-inf - -inf) would be NaN); a row with no kept key at all comes
+// out 0. No tile is skipped: masked tiles cost as much as kept ones.
 #include "common.cuh"
 
 namespace {
@@ -32,13 +44,15 @@ constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 128;  // 4 warps x 16 query rows
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int DP>
+template <int DP, bool LABELED>
 struct Smem {
     static constexpr int LDB = DP + 8;  // bf16 row pitch (16-byte rows, no ldmatrix conflicts)
     static constexpr size_t q = 0;
     static constexpr size_t k = q + sizeof(__nv_bfloat16) * kBQ * LDB;
     static constexpr size_t v = k + sizeof(__nv_bfloat16) * kBK * LDB;
-    static constexpr size_t bytes = v + sizeof(__nv_bfloat16) * kBK * LDB;
+    static constexpr size_t lbits = v + sizeof(__nv_bfloat16) * kBK * LDB;  // key labels
+    static constexpr size_t lopen = lbits + sizeof(int) * kBK;
+    static constexpr size_t bytes = LABELED ? lopen + sizeof(int) * kBK : lbits;
 };
 
 // One thread's share of a 64-row tile of c bf16 values (c % 8 == 0), held
@@ -67,7 +81,31 @@ struct TileRegs {
 #pragma unroll
         for (int e = 0; e < kPer; ++e) {
             const int idx = threadIdx.x + e * kThreads;
-            *reinterpret_cast<uint4*>(dst + (idx / kVec) * Smem<DP>::LDB + (idx % kVec) * 8) = v[e];
+            *reinterpret_cast<uint4*>(dst + (idx / kVec) * (DP + 8) + (idx % kVec) * 8) = v[e];
+        }
+    }
+};
+
+// The labels of one 64-key tile, one key per thread of the first 64; keys
+// at or above kv_len get bits 0 and open 0 (their scores are dropped
+// anyway).
+struct LabelRegs {
+    int bits = 0, open = 0;
+
+    __device__ __forceinline__ void fetch(const int* gbits, const int* gopen, int k0,
+                                          int kv_len) {
+        const int j = k0 + threadIdx.x;
+        bits = open = 0;
+        if (threadIdx.x < kBK && j < kv_len) {
+            bits = gbits[j];
+            open = gopen[j];
+        }
+    }
+
+    __device__ __forceinline__ void store(int* sbits, int* sopen) const {
+        if (threadIdx.x < kBK) {
+            sbits[threadIdx.x] = bits;
+            sopen[threadIdx.x] = open;
         }
     }
 };
@@ -78,24 +116,26 @@ template <int DP>
 __device__ __forceinline__ void load_q(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                        long long row_stride, int r0, int limit, int c) {
     constexpr int kVec = DP / 8;
+    constexpr int LDB = DP + 8;
     for (int idx = threadIdx.x; idx < kBQ * kVec; idx += kThreads) {
         const int r = idx / kVec;
         const int col = (idx % kVec) * 8;
         uint4 val = make_uint4(0u, 0u, 0u, 0u);
         if (r0 + r < limit && col < c)
             val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * row_stride + col);
-        *reinterpret_cast<uint4*>(dst + r * Smem<DP>::LDB + col) = val;
+        *reinterpret_cast<uint4*>(dst + r * LDB + col) = val;
     }
 }
 
-template <int DP>
+template <int DP, bool LABELED>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H, int N,
-    int kv_len, int c, long long qsb, long long qsh, long long qsr, long long ksb,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    const int* __restrict__ lbits, const int* __restrict__ lopen, int label_stride, int H,
+    int N, int kv_len, int c, long long qsb, long long qsh, long long qsr, long long ksb,
     long long ksh, long long ksr, long long vsb, long long vsh, long long vsr,
     long long osb, long long osh, long long osr, float scale) {
-    using L = Smem<DP>;
+    using L = Smem<DP, LABELED>;
     constexpr int LDB = L::LDB;
     constexpr int KD = DP / 16;   // k-steps over the head dim
     constexpr int ND = DP / 8;    // 8-wide output column tiles
@@ -117,6 +157,30 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* vb = v + b * vsb + h * vsh;
     // ldmatrix row address pattern: matrix lane / 8, row lane % 8
     const int lm = lane >> 3, lr = lane & 7;
+    const int row_lo = q0 + wr + g, row_hi = row_lo + 8;  // this lane's q rows
+
+    // labels of this lane's q rows; rows past N are never stored
+    int qb_lo = 0, qo_lo = 0, qb_hi = 0, qo_hi = 0;
+    const int* bb = nullptr;
+    const int* ob_l = nullptr;
+    int* sLB = nullptr;
+    int* sLO = nullptr;
+    LabelRegs rl;
+    if constexpr (LABELED) {
+        bb = lbits + (long long)b * label_stride;
+        ob_l = lopen + (long long)b * label_stride;
+        sLB = reinterpret_cast<int*>(smem + L::lbits);
+        sLO = reinterpret_cast<int*>(smem + L::lopen);
+        if (row_lo < N) {
+            qb_lo = bb[row_lo];
+            qo_lo = ob_l[row_lo];
+        }
+        if (row_hi < N) {
+            qb_hi = bb[row_hi];
+            qo_hi = ob_l[row_hi];
+        }
+        rl.fetch(bb, ob_l, 0, kv_len);
+    }
 
     TileRegs<DP> rk, rv;
     rk.fetch(kb, ksr, 0, kv_len, c);
@@ -141,10 +205,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         __syncthreads();  // previous tile's K/V reads are done
         rk.store(sK);
         rv.store(sV);
+        if constexpr (LABELED) rl.store(sLB, sLO);
         __syncthreads();
         if (k0 + kBK < kv_len) {
             rk.fetch(kb, ksr, k0 + kBK, kv_len, c);
             rv.fetch(vb, vsr, k0 + kBK, kv_len, c);
+            if constexpr (LABELED) rl.fetch(bb, ob_l, k0 + kBK, kv_len);
         }
 
         // S = Q K^T: 16 rows x 64 keys in NS fragments
@@ -163,15 +229,25 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
             }
         }
 
-        // online softmax in log2 units; columns past kv_len score -inf
+        // online softmax in log2 units; columns past kv_len (and, with
+        // labels, dropped pairs) score -inf
         float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
         for (int j = 0; j < NS; ++j) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-                const bool keep = k0 + j * 8 + 2 * t + e < kv_len;
-                sf[j][e] = keep ? sf[j][e] * sl2 : -INFINITY;
-                sf[j][2 + e] = keep ? sf[j][2 + e] * sl2 : -INFINITY;
+                const int col = k0 + j * 8 + 2 * t + e;
+                bool keep_lo = col < kv_len, keep_hi = keep_lo;
+                if constexpr (LABELED) {
+                    const int kbits = sLB[j * 8 + 2 * t + e];
+                    const bool kopen = sLO[j * 8 + 2 * t + e] > 0;
+                    keep_lo = keep_lo && (kopen || qo_lo > 0 || (qb_lo & kbits) != 0 ||
+                                          row_lo == col);
+                    keep_hi = keep_hi && (kopen || qo_hi > 0 || (qb_hi & kbits) != 0 ||
+                                          row_hi == col);
+                }
+                sf[j][e] = keep_lo ? sf[j][e] * sl2 : -INFINITY;
+                sf[j][2 + e] = keep_hi ? sf[j][2 + e] * sl2 : -INFINITY;
                 mx_lo = fmaxf(mx_lo, sf[j][e]);
                 mx_hi = fmaxf(mx_hi, sf[j][2 + e]);
             }
@@ -182,7 +258,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
             mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
         }
         const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-        const float a_lo = exp2f(m_lo - mn_lo), a_hi = exp2f(m_hi - mn_hi);
+        // subtrahend of the exponents: the new running max, except that a
+        // labeled row with no kept key so far subtracts 0, so every exp2f
+        // below gives 0 and not exp2f(-inf + inf) = NaN
+        float ms_lo = mn_lo, ms_hi = mn_hi;
+        if constexpr (LABELED) {
+            if (ms_lo == -INFINITY) ms_lo = 0.f;
+            if (ms_hi == -INFINITY) ms_hi = 0.f;
+        }
+        const float a_lo = exp2f(m_lo - ms_lo), a_hi = exp2f(m_hi - ms_hi);
         m_lo = mn_lo;
         m_hi = mn_hi;
         l_lo *= a_lo;
@@ -197,8 +281,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         uint32_t pf[NS][2];  // P as bf16 pairs: rows g and g + 8
 #pragma unroll
         for (int j = 0; j < NS; ++j) {
-            const float p0 = exp2f(sf[j][0] - mn_lo), p1 = exp2f(sf[j][1] - mn_lo);
-            const float p2 = exp2f(sf[j][2] - mn_hi), p3 = exp2f(sf[j][3] - mn_hi);
+            const float p0 = exp2f(sf[j][0] - ms_lo), p1 = exp2f(sf[j][1] - ms_lo);
+            const float p2 = exp2f(sf[j][2] - ms_hi), p3 = exp2f(sf[j][3] - ms_hi);
             l_lo += p0 + p1;
             l_hi += p2 + p3;
             pf[j][0] = pack_bf16(p0, p1);
@@ -229,7 +313,6 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     }
     const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
     __nv_bfloat16* ob = o + b * osb + h * osh;
-    const int row_lo = q0 + wr + g, row_hi = row_lo + 8;
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
         const int col = d * 8 + 2 * t;
@@ -243,38 +326,60 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     }
 }
 
-template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
-           int kv_len, int c, const long long* st, float scale, cudaStream_t stream) {
-    const size_t smem = Smem<DP>::bytes;
-    cudaError_t err = idt_allow_smem(flash_fwd_kernel<DP>, smem);
+template <int DP, bool LABELED>
+int launch_impl(const void* q, const void* k, const void* v, void* o, const void* bits,
+                const void* open, int label_stride, int B, int H, int N, int kv_len, int c,
+                const long long* st, float scale, cudaStream_t stream) {
+    const size_t smem = Smem<DP, LABELED>::bytes;
+    cudaError_t err = idt_allow_smem(flash_fwd_kernel<DP, LABELED>, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((N + kBQ - 1) / kBQ, B * H);
-    flash_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
+    flash_fwd_kernel<DP, LABELED><<<grid, kThreads, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, N, kv_len, c,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-        scale);
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+        static_cast<const int*>(bits), static_cast<const int*>(open), label_stride, H, N,
+        kv_len, c, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+        st[10], st[11], scale);
     return cudaGetLastError();
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, void* o, const void* bits,
+           const void* open, int label_stride, int B, int H, int N, int kv_len, int c,
+           const long long* st, float scale, cudaStream_t stream) {
+    if (bits != nullptr)
+        return launch_impl<DP, true>(q, k, v, o, bits, open, label_stride, B, H, N, kv_len, c,
+                                     st, scale, stream);
+    return launch_impl<DP, false>(q, k, v, o, nullptr, nullptr, 0, B, H, N, kv_len, c, st,
+                                  scale, stream);
 }
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, row) for q, k, v, o in order.
+// bits/open: int32 instance labels, label_stride entries per batch row
+// covering max(N, kv_len) positions, or both null for unlabeled attention.
 // Requires c % 8 == 0, c <= 128, 16-byte aligned rows, kv_len >= 1.
 IDT_EXPORT int idt_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                   const void* bits, const void* open, int label_stride,
                                    int B, int H, int N, int kv_len, int c,
                                    const long long* strides, float scale, void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if ((bits == nullptr) != (open == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+#define IDT_FA_CASE(n, dp)                                                                \
+    case n:                                                                               \
+        return launch<dp>(q, k, v, o, bits, open, label_stride, B, H, N, kv_len, c, strides, \
+                          scale, s);
     switch ((c + 15) / 16) {
-        case 1: return launch<16>(q, k, v, o, B, H, N, kv_len, c, strides, scale, s);
-        case 2: return launch<32>(q, k, v, o, B, H, N, kv_len, c, strides, scale, s);
-        case 3: return launch<48>(q, k, v, o, B, H, N, kv_len, c, strides, scale, s);
-        case 4: return launch<64>(q, k, v, o, B, H, N, kv_len, c, strides, scale, s);
-        case 5: return launch<80>(q, k, v, o, B, H, N, kv_len, c, strides, scale, s);
-        case 6: return launch<96>(q, k, v, o, B, H, N, kv_len, c, strides, scale, s);
-        case 7: return launch<112>(q, k, v, o, B, H, N, kv_len, c, strides, scale, s);
-        case 8: return launch<128>(q, k, v, o, B, H, N, kv_len, c, strides, scale, s);
+        IDT_FA_CASE(1, 16)
+        IDT_FA_CASE(2, 32)
+        IDT_FA_CASE(3, 48)
+        IDT_FA_CASE(4, 64)
+        IDT_FA_CASE(5, 80)
+        IDT_FA_CASE(6, 96)
+        IDT_FA_CASE(7, 112)
+        IDT_FA_CASE(8, 128)
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
+#undef IDT_FA_CASE
 }

@@ -2,9 +2,11 @@
 `instancediffusion_tpu/data/grounding_input.py`, inference half).
 
 Turns a demo meta dict (phrases, locations, points, scribbles, polygons,
-segs) into the zero-padded (max_objs) NumPy bundle UniFusion reads. The
-scribble, polygon and seg widths are arguments (the JAX package keeps them
-as module constants), so a reduced config needs no patching.
+segs) into the zero-padded (max_objs) NumPy bundle UniFusion reads, and
+splits a meta into the single-instance metas of the Multi-Instance Sampler
+(`prepare_instance_meta`). The scribble, polygon and seg widths are
+arguments (the JAX package keeps them as module constants), so a reduced
+config needs no patching.
 """
 
 from __future__ import annotations
@@ -84,3 +86,18 @@ def prepare_grounding(meta: dict, phrase_embeddings: list, batch: int = 1,
         out["text_masks"][0] *= mult
 
     return {k: np.repeat(v, batch, axis=0) for k, v in out.items()}
+
+
+def prepare_instance_meta(meta: dict, i: int) -> dict:
+    """Single-instance meta for a MIS trajectory (utils/input.py:130-144):
+    instance phrase doubles as the prompt."""
+    return {
+        "phrases": [meta["phrases"][i]],
+        "locations": [meta["locations"][i]],
+        "polygons": [meta["polygons"][i]] if meta.get("polygons") else None,
+        "segs": [meta["segs"][i]] if meta.get("segs") is not None else None,
+        "scribbles": [meta["scribbles"][i]] if meta.get("scribbles") else None,
+        "points": [meta["points"][i]] if meta.get("points") else None,
+        "alpha_type": meta.get("alpha_type"),
+        "prompt": meta["phrases"][i],
+    }

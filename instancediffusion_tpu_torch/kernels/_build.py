@@ -35,7 +35,8 @@ BUILD_INFO: dict = {}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "idt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _P],
+    "idt_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F,
+                            _P],
     "idt_group_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                        _I, _P],
     "idt_layer_norm": [_P, _P, _P, _P, _LL, _I, _F, _I, _P],

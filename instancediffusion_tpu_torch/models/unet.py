@@ -7,7 +7,9 @@ names mirror the JAX parameter tree (`input_blocks.1.0.in_norm.weight` is
 `params["input_blocks"][1][0]["in_norm"]["scale"]`).
 
 The gate scale is a Python float per step: at gate 0 the fuser does not
-run and the stock-SD first conv replaces the grounded one.
+run and the stock-SD first conv replaces the grounded one. `fuser_mask`
+(instance-masked attention, `use_masked_att`) reaches the fuser at ds1 only,
+as (bits, open) labels for the flash kernel or a dense keep-mask.
 """
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ class MHA(torch.nn.Module):
         self.to_out = nn.Linear(inner_dim, query_dim, **kw)
 
 
-def _apply_mha(p: MHA, x, kv, num_heads, impl, kv_len=None):
+def _apply_mha(p: MHA, x, kv, num_heads, impl, kv_len=None, mask=None, labels=None):
     c = p.to_q.weight.shape[0] // num_heads
     pre_scaled = impl == "kernel"
     if pre_scaled:
@@ -114,8 +116,8 @@ def _apply_mha(p: MHA, x, kv, num_heads, impl, kv_len=None):
         q = nn.linear(p.to_q, x)
     k = nn.linear(p.to_k, kv)
     v = nn.linear(p.to_v, kv)
-    out = multi_head_attention(q, k, v, num_heads, impl=impl, pre_scaled=pre_scaled,
-                               kv_len=kv_len)
+    out = multi_head_attention(q, k, v, num_heads, mask=mask, labels=labels, impl=impl,
+                               pre_scaled=pre_scaled, kv_len=kv_len)
     return nn.linear(p.to_out, out)
 
 
@@ -150,15 +152,21 @@ class Fuser(torch.nn.Module):
         self.alpha_dense = nn.param(torch.zeros((), device=device))
 
 
-def _apply_fuser(p: Fuser, x, objs, num_heads, gate_scale, impl):
+def _apply_fuser(p: Fuser, x, objs, num_heads, gate_scale, impl, fuser_mask=None):
     """x (B,N,C) visual tokens, objs (B,G,ctx) grounding tokens. The kv
     sequence [x | objs] is passed unpadded: the flash kernel masks its own
-    ragged tail."""
+    ragged tail. fuser_mask: None, (bits, open) int32 (B,N+G) labels, or a
+    dense (B,1,N+G,N+G) bool keep-mask."""
     n_visual = x.shape[1]
+    mask, labels = ((None, fuser_mask) if isinstance(fuser_mask, tuple)
+                    else (fuser_mask, None))
+    if mask is not None:
+        mask = mask[:, :, :n_visual, :]
     objs_p = nn.linear(p.linear, objs.to(x.dtype))
     cat = nn.layer_norm(p.norm1, torch.cat([x, objs_p], dim=1))
     # query only the visual rows (the grounding rows' outputs are discarded)
-    attn_out = _apply_mha(p.attn, cat[:, :n_visual], cat, num_heads, impl)
+    attn_out = _apply_mha(p.attn, cat[:, :n_visual], cat, num_heads, impl, mask=mask,
+                          labels=labels)
     g1 = (gate_scale * torch.tanh(p.alpha_attn.float())).to(x.dtype)
     x = x + g1 * attn_out
     g2 = (gate_scale * torch.tanh(p.alpha_dense.float())).to(x.dtype)
@@ -177,12 +185,12 @@ class TransformerBlock(torch.nn.Module):
         self.norm3 = nn.Norm(dim, device=device)
         self.fuser = Fuser(dim, context_dim, **kw)
 
-    def forward(self, x, context, objs, num_heads, gate_scale, impl):
+    def forward(self, x, context, objs, num_heads, gate_scale, impl, fuser_mask=None):
         """self-attn -> fuser (skipped at gate 0) -> cross-attn -> FF."""
         xn = nn.layer_norm(self.norm1, x)
         x = _apply_mha(self.attn1, xn, xn, num_heads, impl) + x
         if gate_scale != 0.0:
-            x = _apply_fuser(self.fuser, x, objs, num_heads, gate_scale, impl)
+            x = _apply_fuser(self.fuser, x, objs, num_heads, gate_scale, impl, fuser_mask)
         x = _apply_mha(self.attn2, nn.layer_norm(self.norm2, x), context.to(x.dtype),
                        num_heads, impl) + x
         return _apply_ff_geglu(self.ff, nn.layer_norm(self.norm3, x)) + x
@@ -198,13 +206,13 @@ class SpatialTransformer(torch.nn.Module):
             TransformerBlock(ch, context_dim, **kw) for _ in range(depth))
         self.proj_out = nn.Conv2d(ch, ch, 1, zero=True, **kw)
 
-    def forward(self, x, context, objs, num_heads, gate_scale, impl):
+    def forward(self, x, context, objs, num_heads, gate_scale, impl, fuser_mask=None):
         b, h, w, c = x.shape
         x_in = x
         x = nn.conv2d(self.proj_in, nn.group_norm(self.norm, x, eps=1e-6))
         x = x.reshape(b, h * w, c)
         for blk in self.blocks:
-            x = blk(x, context, objs, num_heads, gate_scale, impl)
+            x = blk(x, context, objs, num_heads, gate_scale, impl, fuser_mask)
         return nn.conv2d(self.proj_out, x.reshape(b, h, w, c)) + x_in
 
 
@@ -337,11 +345,14 @@ def _fourier_filter_fft(x, threshold, scale):
 
 
 def apply_unet(p: UNet, cfg: UNetConfig, x, timesteps, context, grounding=None,
-               gate_scale: float = 1.0, drops=None, precomputed_objs=None):
+               gate_scale: float = 1.0, drops=None, precomputed_objs=None,
+               fuser_mask=None):
     """eps-prediction forward. x (B,H,W,4) NHWC, timesteps (B,), context
     (B,77,D). Grounding tokens come from `precomputed_objs` (B,G,D) or are
     computed from `grounding` (null grounding when None). Long attention
-    goes to the flash kernel unless plain_kernels() is active."""
+    goes to the flash kernel unless plain_kernels() is active. fuser_mask:
+    the ds1 fusers' instance mask, (bits, open) int32 (B,N64+G) labels or a
+    dense (B,1,N64+G,N64+G) bool keep-mask."""
     attn_impl = "kernel" if cfg.efficient_attention and nn.kernels_enabled() else "plain"
     gcfg = cfg.grounding_tokenizer
     gate_scale = float(gate_scale)
@@ -366,7 +377,8 @@ def apply_unet(p: UNet, cfg: UNetConfig, x, timesteps, context, grounding=None,
         if spec.kind == "res":
             return m(h, emb)
         if spec.kind == "attn":
-            return m(h, context, objs, cfg.num_heads, gate_scale, attn_impl)
+            mask = fuser_mask if spec.ds == 1 else None
+            return m(h, context, objs, cfg.num_heads, gate_scale, attn_impl, mask)
         if spec.kind == "down":
             return nn.conv2d(m.conv, h, stride=2, padding=1)
         if spec.kind == "up":

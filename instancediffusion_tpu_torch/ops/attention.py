@@ -3,9 +3,10 @@
 `sdpa_xla` is plain einsum/softmax attention with fp32 scores, the port of
 the JAX package's XLA path, and also the plain version of the flash
 attention kernel. `multi_head_attention` keeps the JAX routing: long
-sequences (`big`) go to the flash kernel, packed when the head dim is at
-least 64 and split-heads below; everything else (cross-attention over 77
-tokens, ds4/ds8, masked attention) stays plain.
+sequences (`big`) and instance labels go to the flash kernel, packed when
+the head dim is at least 64 and split-heads below; everything else
+(cross-attention over 77 tokens, ds4/ds8, a dense mask) stays plain, and a
+plain call with labels expands them with `labels_to_dense`.
 """
 
 from __future__ import annotations
@@ -40,31 +41,48 @@ def sdpa_xla(q, k, v, mask=None, pre_scaled=False):
     return torch.einsum("bhnm,bhmc->bhnc", attn, v.float()).to(q.dtype)
 
 
-def multi_head_attention(q, k, v, num_heads: int, mask=None, impl="plain",
-                         pre_scaled=False, kv_len=None):
+def labels_to_dense(bits, open_):
+    """(B,L) instance labels -> dense (B,1,L,L) bool keep-mask, the plain
+    form of the flash kernel's in-kernel predicate
+    keep(i,j) = open_i | open_j | (bits_i & bits_j) != 0 | i == j."""
+    i = torch.arange(bits.shape[1], device=bits.device)
+    keep = ((open_[:, :, None] > 0) | (open_[:, None, :] > 0)
+            | ((bits[:, :, None] & bits[:, None, :]) != 0)
+            | (i[:, None] == i[None, :])[None])
+    return keep[:, None]
+
+
+def multi_head_attention(q, k, v, num_heads: int, mask=None, labels=None,
+                         impl="plain", pre_scaled=False, kv_len=None):
     """(B,N,H*c) x (B,M,H*c) -> (B,N,H*c). impl: "kernel" routes long
-    sequences to the flash kernel; "plain" never does. kv_len: true kv
-    length when k/v are padded past it."""
+    sequences and labeled calls to the flash kernel; "plain" never does.
+    mask: dense (B,1,N,M) bool keep-mask (always plain). labels: (bits,
+    open) int32 (B,L) over k-sequence positions, L >= M; q covers the first
+    N. kv_len: true kv length when k/v are padded past it."""
     n, m = q.shape[1], k.shape[1]
-    # the flash kernel pays off on long sequences only (JAX routing)
-    big = n >= 1024 and m >= 512
+    # the flash kernel pays off on long sequences only (JAX routing);
+    # labels always take it
+    big = (n >= 1024 and m >= 512) or labels is not None
     head_c = q.shape[2] // num_heads
     if impl == "kernel" and big and mask is None and head_c >= 64:
         from instancediffusion_tpu_torch.kernels.flash_attention import (
             flash_attention_packed,
         )
 
-        return flash_attention_packed(q, k, v, num_heads, pre_scaled=pre_scaled,
-                                      kv_len=kv_len)
+        return flash_attention_packed(q, k, v, num_heads, labels=labels,
+                                      pre_scaled=pre_scaled, kv_len=kv_len)
     qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
     if impl == "kernel" and big and mask is None:
         from instancediffusion_tpu_torch.kernels.flash_attention import (
             flash_attention,
         )
 
-        out = flash_attention(qh, kh, vh, pre_scaled=pre_scaled, kv_len=kv_len)
+        out = flash_attention(qh, kh, vh, labels=labels, pre_scaled=pre_scaled,
+                              kv_len=kv_len)
     else:
-        if kv_len is not None:
-            kh, vh = kh[:, :, :kv_len], vh[:, :, :kv_len]
+        m_true = m if kv_len is None else kv_len
+        kh, vh = kh[:, :, :m_true], vh[:, :, :m_true]
+        if labels is not None and mask is None:
+            mask = labels_to_dense(*labels)[:, :, :n, :m_true]
         out = sdpa_xla(qh, kh, vh, mask=mask, pre_scaled=pre_scaled)
     return _merge_heads(out)

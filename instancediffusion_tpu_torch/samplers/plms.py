@@ -1,12 +1,13 @@
 """PLMS (pseudo linear multistep) sampler (counterpart of
 `instancediffusion_tpu/samplers/plms.py`).
 
-The JAX `lax.scan` becomes a Python loop over static-gate segments: the
-gate of each step is a Python float handed to `model_fn`, so a gate-0
-segment runs a UNet without the fuser. The first step is the order-1
-pseudo improved Euler with its extra model call; later steps combine up to
-four eps values (Adams-Bashforth). Sampler state (x, eps history) is
-float32 whatever the model's compute dtype; eta is 0.
+The JAX `lax.scan` becomes a Python loop: the gate of each step is a
+Python float handed to `model_fn`, so a gate-0 step runs a UNet without the
+fuser. A pass with no eps history starts with the order-1 pseudo improved
+Euler step and its extra model call; later steps combine up to four eps
+values (Adams-Bashforth). `plms_steps` runs a range of steps and can resume
+with a history (the Multi-Instance Sampler's phase 2 does). Sampler state
+(x, eps history) is float32 whatever the model's compute dtype; eta is 0.
 """
 
 from __future__ import annotations
@@ -70,18 +71,6 @@ def make_plms_schedule(diffusion: DiffusionSchedule, num_steps: int,
     )
 
 
-def gate_runs(gates: np.ndarray) -> tuple:
-    """Run-length encode a per-step gate array into ((value, count), ...)."""
-    runs: list[list] = []
-    for g in np.asarray(gates):
-        g = float(g)
-        if runs and runs[-1][0] == g:
-            runs[-1][1] += 1
-        else:
-            runs.append([g, 1])
-    return tuple((g, n) for g, n in runs)
-
-
 def _x_prev(x, e_t, a_t, a_prev, sqrt_1m_at):
     """x_{t-1} and pred_x0 with sigma = 0; coefficients are float32 scalars."""
     pred_x0 = (x - sqrt_1m_at * e_t) / math.sqrt(a_t)
@@ -98,28 +87,38 @@ def _e_t_prime(e_t, hist):
     return (55 * e_t - 59 * hist[-1] + 37 * hist[-2] - 9 * hist[-3]) / 24
 
 
-def plms_sample(model_fn: ModelFn, sched: PLMSSchedule, x_init: torch.Tensor) -> torch.Tensor:
-    """Full PLMS pass over the schedule's static-gate segments; returns the
-    float32 latent."""
-    x = x_init.float()
+def plms_steps(model_fn: ModelFn, sched: PLMSSchedule, x: torch.Tensor, start: int,
+               stop: int, hist: list[torch.Tensor] | None = None,
+               assume_history: bool = False) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """PLMS steps [start, stop) from x. hist: eps history to resume with
+    (newest last; the last three are used). Without history the first step
+    is the order-1 pseudo improved Euler with its extra model call;
+    assume_history: the caller promises a history (raises without one), so
+    no order-1 step runs. Returns the float32 x and the history."""
+    x = x.float()
+    hist = [] if hist is None else [e.float() for e in hist][-3:]
+    if assume_history and not hist:
+        raise ValueError("plms_steps: assume_history without an eps history")
     b = x.shape[0]
-    hist: list[torch.Tensor] = []
-    start = 0
-    for gate, count in gate_runs(sched.gates):
-        for i in range(start, start + count):
-            a_t, a_prev = float(sched.a_t[i]), float(sched.a_prev[i])
-            sqrt_1m = float(sched.sqrt_one_minus_a_t[i])
-            t = torch.full((b,), int(sched.ts[i]), dtype=torch.long, device=x.device)
-            e_t = model_fn(x, t, gate).float()
-            if not hist:
-                # pseudo improved Euler: a second model call at (x_prev, t_next)
-                t_next = torch.full((b,), int(sched.ts_next[i]), dtype=torch.long,
-                                    device=x.device)
-                x1 = _x_prev(x, e_t, a_t, a_prev, sqrt_1m)
-                e_prime = (e_t + model_fn(x1, t_next, gate).float()) / 2
-            else:
-                e_prime = _e_t_prime(e_t, hist)
-            x = _x_prev(x, e_prime, a_t, a_prev, sqrt_1m)
-            hist = (hist + [e_t])[-3:]
-        start += count
-    return x
+    for i in range(start, stop):
+        gate = float(sched.gates[i])
+        a_t, a_prev = float(sched.a_t[i]), float(sched.a_prev[i])
+        sqrt_1m = float(sched.sqrt_one_minus_a_t[i])
+        t = torch.full((b,), int(sched.ts[i]), dtype=torch.long, device=x.device)
+        e_t = model_fn(x, t, gate).float()
+        if not hist:
+            # pseudo improved Euler: a second model call at (x_prev, t_next)
+            t_next = torch.full((b,), int(sched.ts_next[i]), dtype=torch.long,
+                                device=x.device)
+            x1 = _x_prev(x, e_t, a_t, a_prev, sqrt_1m)
+            e_prime = (e_t + model_fn(x1, t_next, gate).float()) / 2
+        else:
+            e_prime = _e_t_prime(e_t, hist)
+        x = _x_prev(x, e_prime, a_t, a_prev, sqrt_1m)
+        hist = (hist + [e_t])[-3:]
+    return x, hist
+
+
+def plms_sample(model_fn: ModelFn, sched: PLMSSchedule, x_init: torch.Tensor) -> torch.Tensor:
+    """Full PLMS pass; returns the float32 latent."""
+    return plms_steps(model_fn, sched, x_init, 0, sched.num_steps)[0]

@@ -20,7 +20,8 @@ from instancediffusion_tpu_torch.kernels import flash_attention as fa
 from instancediffusion_tpu_torch.kernels import geglu_ff as ff
 from instancediffusion_tpu_torch.kernels import norms
 from instancediffusion_tpu_torch.nn import core as pnn
-from instancediffusion_tpu_torch.ops.attention import sdpa_xla
+from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_xla
+from instancediffusion_tpu_torch.ops.instance_mask import rasterize_boxes
 
 REL_TOL = 1e-2
 FP32_REL_TOL = 1e-5
@@ -41,6 +42,34 @@ def _heads(t, h):
     return t.reshape(t.shape[0], t.shape[1], h, -1).transpose(1, 2)
 
 
+# two samples: sample 0 masked by three boxes, sample 1 all open (the CFG
+# null half)
+BOXES = [[0.05, 0.35, 0.45, 0.90], [0.55, 0.30, 0.95, 0.90], [0.42, 0.05, 0.58, 0.25]]
+
+
+def _box_labels(dev, size, n_objs=30, seg_tokens=64):
+    boxes = torch.zeros(2, n_objs, 4, device=dev)
+    boxes[0, :3] = torch.tensor(BOXES, device=dev)
+    return fa.instance_labels(rasterize_boxes(boxes, size), n_objs, seg_tokens)
+
+
+def _late_labels(dev, length, split):
+    """Positions < split carry instance 0, the rest instance 1, nothing
+    open: rows >= split find no kept key in their first split keys."""
+    bits = torch.where(torch.arange(length, device=dev) < split, 1, 2).int()
+    return bits.expand(2, length).contiguous(), torch.zeros(2, length, dtype=torch.int32,
+                                                            device=dev)
+
+
+def _labeled_split(q, k, v, labels, kv_len):
+    n = q.shape[1]
+    mask = labels_to_dense(*labels)[:, :, :n, :kv_len]
+    return (lambda: fa.flash_attention(_heads(q, 8), _heads(k, 8), _heads(v, 8), labels=labels,
+                                       kv_len=kv_len),
+            lambda: sdpa_xla(_heads(q, 8), _heads(k[:, :kv_len], 8), _heads(v[:, :kv_len], 8),
+                             mask=mask), REL_TOL)
+
+
 def _case(name, dev):
     """(kernel fn, plain fn, tolerance) at a main-path shape, batch 2."""
     g = torch.Generator(device=dev).manual_seed(0)
@@ -55,6 +84,22 @@ def _case(name, dev):
                                            kv_len=4280),
                 lambda: sdpa_xla(_heads(q, 8), _heads(k[:, :4280], 8),
                                  _heads(v[:, :4280], 8)), REL_TOL)
+    if name == "flash_attention_labeled":  # ds1 masked fuser over 4280 keys
+        q, k, v = rnd(2, 4096, 320), rnd(2, 4280, 320), rnd(2, 4280, 320)
+        return _labeled_split(q, k, v, _box_labels(dev, 64), 4280)
+    if name == "flash_attention_labeled_late":  # first 16 key tiles fully masked
+        q, k, v = rnd(2, 2048, 320), rnd(2, 2304, 320), rnd(2, 2304, 320)
+        return _labeled_split(q, k, v, _late_labels(dev, 2304, 1024), 2100)
+    if name == "flash_attention_packed_labeled":  # ds2-shaped, labels at a 32x32 raster
+        q, k, v = rnd(2, 1024, 640), rnd(2, 1208, 640), rnd(2, 1208, 640)
+        labels = _box_labels(dev, 32)
+        mask = labels_to_dense(*labels)[:, :, :1024, :1208]
+
+        def plain():
+            out = sdpa_xla(_heads(q, 8), _heads(k, 8), _heads(v, 8), mask=mask)
+            return out.transpose(1, 2).reshape(2, 1024, 640)
+
+        return lambda: fa.flash_attention_packed(q, k, v, 8, labels=labels), plain, REL_TOL
     if name == "flash_attention_packed":  # ds2 fuser, kv pre-padded past kv_len
         q, k, v = rnd(2, 1024, 640), rnd(2, 1536, 640), rnd(2, 1536, 640)
 
@@ -86,7 +131,9 @@ def _case(name, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_kv_len",
-                                  "flash_attention_packed", "fused_group_norm",
+                                  "flash_attention_labeled", "flash_attention_labeled_late",
+                                  "flash_attention_packed", "flash_attention_packed_labeled",
+                                  "fused_group_norm",
                                   "fused_layer_norm", "fused_layer_norm_fp32",
                                   "fused_ff_geglu"])
 def test_kernel_matches_plain_on_card(dev, name):

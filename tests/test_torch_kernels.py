@@ -81,10 +81,74 @@ def test_flash_attention_pre_scaled_matches_pallas():
     _close(out, ref)
 
 
-def test_flash_attention_labels_not_ported():
-    t = torch.zeros(1, 1, 8, 8)
-    with pytest.raises(NotImplementedError, match="labels"):
-        fa.flash_attention(t, t, t, labels=(t, t))
+def _labels(rng, length, pattern):
+    """(bits, open) int32 (2, length): sample 0 follows `pattern`, sample 1
+    is fully open (as the CFG null half is).
+      random: up to 3 instance bits per position, some GROUNDING_BIT, ~5 %
+              open positions
+      late:   positions < 256 carry instance 0, the rest instance 1, none
+              open: rows >= 256 find no kept key in their first 256 keys
+              (two Pallas blocks of 128, four CUDA tiles of 64)"""
+    bits = np.zeros((2, length), np.int32)
+    open_ = np.zeros((2, length), np.int32)
+    if pattern == "random":
+        bits[0] = rng.integers(0, 8, length) | np.where(rng.uniform(size=length) < 0.1,
+                                                        jfa.GROUNDING_BIT, 0)
+        open_[0] = rng.uniform(size=length) < 0.05
+    else:
+        bits[0] = np.where(np.arange(length) < 256, 1, 2)
+    open_[1] = 1
+    return bits, open_
+
+
+@pytest.mark.parametrize("n,m,kv_len,pattern", [
+    (256, 256, None, "random"),
+    (200, 300, None, "random"),   # ragged q and kv
+    (256, 384, 300, "random"),    # kv pre-padded past kv_len
+    (384, 400, None, "late"),     # rows whose first key blocks are fully masked
+])
+def test_flash_attention_labeled_plain_matches_pallas(n, m, kv_len, pattern):
+    rng = np.random.default_rng(10)
+    q, k, v = (_rand(rng, 2, 2, s, 40) for s in (n, m, m))
+    bits, open_ = _labels(rng, m, pattern)
+    ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              labels=(jnp.asarray(bits), jnp.asarray(open_)), block_q=128,
+                              block_k=128, interpret=True, kv_len=kv_len)
+    out = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                             labels=(torch.from_numpy(bits), torch.from_numpy(open_)),
+                             kv_len=kv_len)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("n,m,kv_len,pattern", [
+    (256, 256, None, "random"),
+    (200, 300, None, "random"),
+    (256, 384, 300, "random"),
+    (384, 400, None, "late"),
+])
+def test_flash_attention_packed_labeled_plain_matches_pallas(n, m, kv_len, pattern):
+    rng = np.random.default_rng(11)
+    heads, c = 2, 80
+    q, k, v = (_rand(rng, 2, s, heads * c) for s in (n, m, m))
+    bits, open_ = _labels(rng, m, pattern)
+    ref = jfa.flash_attention_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads,
+                                     labels=(jnp.asarray(bits), jnp.asarray(open_)),
+                                     block_q=128, block_k=128, interpret=True,
+                                     kv_len=kv_len)
+    out = fa.flash_attention_packed(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), heads,
+                                    labels=(torch.from_numpy(bits), torch.from_numpy(open_)),
+                                    kv_len=kv_len)
+    _close(out, ref)
+
+
+def test_flash_attention_labels_must_cover_the_sequence():
+    q = torch.zeros(2, 2, 64, 16)
+    bits = torch.zeros(2, 64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        fa.flash_attention(q, q, q, labels=(bits.long(), bits.long()))
+    with pytest.raises(ValueError, match="cover"):
+        fa.flash_attention(q, q, q, labels=(bits[:, :32], bits[:, :32]))
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +242,9 @@ def test_cpu_wrappers_take_plain_path_and_count_nothing():
     q = x.reshape(2, 64, 4, 16).transpose(1, 2)
     fa.flash_attention(q, q, q)
     fa.flash_attention_packed(x, x, x, 4)
+    labels = (torch.ones(2, 64, dtype=torch.int32), torch.zeros(2, 64, dtype=torch.int32))
+    fa.flash_attention(q, q, q, labels=labels)
+    fa.flash_attention_packed(x, x, x, 4, labels=labels)
     assert sum(kernels.LAUNCHES.values()) == 0
 
 

@@ -79,7 +79,7 @@ def test_schedules_match():
     ps = plms.make_plms_schedule(pd, 50, [0.75, 0.0, 0.25])
     for f in ("ts", "ts_next", "a_t", "a_prev", "sqrt_one_minus_a_t", "gates"):
         np.testing.assert_array_equal(getattr(ps, f), getattr(js, f), err_msg=f)
-    assert plms.gate_runs(ps.gates) == jplms.gate_runs(js.gates) == ((1.0, 37), (0.0, 13))
+    assert ps.gates.tolist() == [1.0] * 37 + [0.0] * 13
     # sin/cos of fp32 arguments up to 981 rad: one fp32 ulp of the argument
     # there is 6e-5, and the two libraries' trig differ by about that much
     t = np.array([0, 17, 981], np.int32)
@@ -133,6 +133,27 @@ def test_prepare_grounding_matches():
     assert out.keys() == ref.keys()
     for k in ref:
         np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("i", [0, 2])
+def test_prepare_instance_meta_matches(i):
+    meta = {
+        "prompt": "three things",
+        "phrases": ["a", "b", "c"],
+        "locations": [[0.1, 0.1, 0.5, 0.5], [0.6, 0.6, 0.9, 0.9], [0.2, 0.5, 0.4, 0.9]],
+        "points": [[0.3, 0.3], [0.7, 0.7], [0.3, 0.7]],
+        "polygons": [[0.1] * 8, None, [0.2] * 8],
+        "segs": [np.zeros((4, 4)), None, np.ones((4, 4))],
+        "alpha_type": [0.75, 0.0, 0.25],
+    }
+    ref = jgi.prepare_instance_meta(meta, i)
+    out = pgi.prepare_instance_meta(meta, i)
+    assert out.keys() == ref.keys() and out["prompt"] == meta["phrases"][i]
+    for k in ref:
+        if k == "segs":
+            np.testing.assert_array_equal(out[k], ref[k])
+        else:
+            assert out[k] == ref[k], k
 
 
 def test_fourier_filter_matches():
@@ -233,6 +254,46 @@ def test_apply_unet_matches(models, gate):
         _close(unet.apply_unet(*args, gate_scale=gate), ref, 1e-4)
 
 
+@pytest.mark.parametrize("form", ["labels", "dense"])
+def test_apply_unet_masked_fuser_matches(models, form):
+    """Instance-masked fuser at ds1, as (bits, open) labels (the port's
+    flash route on the CPU: its plain version) or as a dense keep-mask; one
+    sample masked by three boxes, one all open."""
+    from instancediffusion_tpu.kernels.flash_attention import instance_labels
+    from instancediffusion_tpu.ops.instance_mask import build_fuser_mask, rasterize_boxes
+
+    cfg, pcfg, jp, mods = models
+    mc = cfg.model
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, mc.image_size, mc.image_size, 4)).astype(np.float32)
+    t = np.array([981, 501], np.int32)
+    ctx = rng.standard_normal((2, 77, mc.context_dim)).astype(np.float32)
+    g = _grounding(cfg, 2, 10)
+    live = np.array([[1, 1, 1, 0], [0, 0, 0, 0]], np.float32)[..., None, None]
+    rasters = np.asarray(rasterize_boxes(jnp.asarray(g["boxes"]), mc.image_size)) * live
+    seg = mc.grounding_tokenizer.num_seg_tokens
+    if form == "labels":
+        jmask = instance_labels(jnp.asarray(rasters), mc.max_objs, seg)
+        pmask = tuple(torch.from_numpy(np.array(a)) for a in jmask)
+    else:
+        jmask = build_fuser_mask(jnp.asarray(rasters), seg_tokens=seg)
+        pmask = torch.from_numpy(np.array(jmask))
+    ref = junet.apply_unet(jp["unet"], mc, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx),
+                           {k: jnp.asarray(v) for k, v in g.items()}, gate_scale=1.0,
+                           fuser_mask=jmask)
+    unmasked = junet.apply_unet(jp["unet"], mc, jnp.asarray(x), jnp.asarray(t),
+                                jnp.asarray(ctx), {k: jnp.asarray(v) for k, v in g.items()},
+                                gate_scale=1.0)
+    # the mask changes the masked sample only
+    assert np.abs(np.asarray(ref - unmasked))[0].max() > 1e-2
+    np.testing.assert_allclose(np.asarray(ref)[1], np.asarray(unmasked)[1], atol=1e-5)
+    args = (mods["unet"], pcfg.model, torch.from_numpy(x), torch.from_numpy(t),
+            torch.from_numpy(ctx), {k: torch.from_numpy(v) for k, v in g.items()})
+    _close(unet.apply_unet(*args, gate_scale=1.0, fuser_mask=pmask), ref, 1e-4)
+    with plain_kernels():
+        _close(unet.apply_unet(*args, gate_scale=1.0, fuser_mask=pmask), ref, 1e-4)
+
+
 def test_vae_decode_matches(models):
     cfg, _, jp, mods = models
     z = np.random.default_rng(6).standard_normal((2, 8, 8, 4)).astype(np.float32)
@@ -265,3 +326,91 @@ def test_plms_sample_matches():
     out = plms.plms_sample(torch_fn, ps, torch.from_numpy(x0))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
     assert calls == [1.0, 1.0, 1.0, 1.0, 0.0]  # 5 model calls: step 0 calls twice
+
+
+def _toy_fns(rows_scale=0.0):
+    """One model function in both frameworks; rows_scale makes each batch
+    row's eps differ (trajectories then diverge)."""
+    def torch_fn(x, t, gate):
+        r = torch.arange(x.shape[0], dtype=torch.float32)[:, None, None, None] * rows_scale
+        return torch.tanh(x) * (t.float() / 1000)[:, None, None, None] + 0.1 * gate + r
+
+    def jax_fn(x, t, gate):
+        r = jnp.arange(x.shape[0], dtype=jnp.float32)[:, None, None, None] * rows_scale
+        return (jnp.tanh(x) * (t.astype(jnp.float32) / 1000)[:, None, None, None]
+                + 0.1 * gate + r)
+
+    return torch_fn, jax_fn
+
+
+def _schedules(steps):
+    d = jsched.make_diffusion_schedule("linear", 1000, 0.00085, 0.012)
+    js = jplms.make_plms_schedule(d, steps, [0.75, 0.0, 0.25])
+    ps = plms.make_plms_schedule(
+        schedules.make_diffusion_schedule("linear", 1000, 0.00085, 0.012), steps,
+        [0.75, 0.0, 0.25])
+    return js, ps
+
+
+@pytest.mark.parametrize("split", [1, 2])
+def test_plms_steps_resumed_with_history_matches(split):
+    """Steps [0, split), then [split, 4) resumed with the eps history and
+    no order-1 step: the same x as JAX and as one uninterrupted pass."""
+    js, ps = _schedules(4)
+    torch_fn, jax_fn = _toy_fns()
+    x0 = np.random.default_rng(11).standard_normal((2, 4, 4, 3)).astype(np.float32)
+    gates = jplms.gate_runs(js.gates)
+    jx, jh, jn = jplms.plms_steps(jax_fn, js, jnp.asarray(x0), 0, split, static_gates=gates)
+    jx, _, _ = jplms.plms_steps(jax_fn, js, jx, split, 4, hist=jh, n_hist=jn,
+                                assume_history=True, static_gates=gates)
+    px, hist = plms.plms_steps(torch_fn, ps, torch.from_numpy(x0), 0, split)
+    assert len(hist) == split
+    np.testing.assert_allclose(hist[-1].numpy(), np.asarray(jh[2]), atol=1e-6)
+    px, _ = plms.plms_steps(torch_fn, ps, px, split, 4, hist=hist, assume_history=True)
+    np.testing.assert_allclose(px.numpy(), np.asarray(jx), atol=1e-5, rtol=1e-5)
+    full = plms.plms_sample(torch_fn, ps, torch.from_numpy(x0))
+    np.testing.assert_allclose(px.numpy(), full.numpy(), atol=1e-6)
+    with pytest.raises(ValueError, match="history"):
+        plms.plms_steps(torch_fn, ps, px, 2, 4, assume_history=True)
+
+
+@pytest.mark.parametrize("merge", ["mean", "weights", "crop"])
+def test_mis_sample_matches(merge):
+    """3 trajectories x batch 2 for 2 of 4 steps, merged (mean, weighted
+    mean over the real trajectories, or box crop-and-paste), then 2 global
+    steps on trajectory 0's history."""
+    from instancediffusion_tpu.samplers import mis as jmis
+    from instancediffusion_tpu_torch.samplers import mis
+
+    js, ps = _schedules(4)
+    traj_t, traj_j = _toy_fns(rows_scale=0.05)
+    glob_t, glob_j = _toy_fns()
+    x0 = np.random.default_rng(12).standard_normal((2, 8, 8, 3)).astype(np.float32)
+    boxes = np.array([[0.1, 0.2, 0.55, 0.8], [0.5, 0.0, 1.0, 0.45]], np.float32)
+    weights = np.array([[1, 1], [1, 0], [0, 1]], np.float32)
+    kw_j, kw_p = {}, {}
+    if merge == "crop":
+        kw_j = dict(merge="crop", boxes01=jnp.asarray(boxes))
+        kw_p = dict(merge="crop", boxes01=torch.from_numpy(boxes))
+    elif merge == "weights":
+        kw_j, kw_p = dict(traj_weights=jnp.asarray(weights)), dict(
+            traj_weights=torch.from_numpy(weights))
+    ref = jmis.mis_sample(traj_j, glob_j, js, jnp.asarray(x0), 3, mis_step=2,
+                          static_gates=jplms.gate_runs(js.gates), **kw_j)
+    out = mis.mis_sample(traj_t, glob_t, ps, torch.from_numpy(x0), 3, 2, **kw_p)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+    plain = plms.plms_sample(glob_t, ps, torch.from_numpy(x0))
+    assert np.abs(out.numpy() - plain.numpy()).max() > 1e-3  # the trajectories mattered
+
+
+def test_stack_groundings_matches():
+    from instancediffusion_tpu.samplers import mis as jmis
+    from instancediffusion_tpu_torch.samplers import mis
+
+    rng = np.random.default_rng(13)
+    rows = [{"boxes": rng.uniform(size=(1, 3, 4)).astype(np.float32),
+             "masks": rng.uniform(size=(1, 3)).astype(np.float32)} for _ in range(3)]
+    ref = jmis.stack_groundings([{k: jnp.asarray(v) for k, v in r.items()} for r in rows])
+    out = mis.stack_groundings([{k: torch.from_numpy(v) for k, v in r.items()} for r in rows])
+    for k in ref:
+        np.testing.assert_array_equal(out[k].numpy(), np.asarray(ref[k]))

@@ -1,7 +1,11 @@
 """The whole port of `generate` against the JAX pipeline: tiny config,
 densified random weights bridged into both, the same starting latents from
 numpy, fp32 params and compute, 4 PLMS steps (alpha_type [0.75, 0, 0.25]
-gives gates 1, 1, 1, 0, so both gate values and the first-conv swap run)."""
+gives gates 1, 1, 1, 0, so both gate values and the first-conv swap run),
+without and with the Multi-Instance Sampler and instance-masked fuser
+attention."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,6 +59,39 @@ def test_generate_matches_jax(pipes):
     assert np.abs(out.astype(int) - ref.astype(int)).max() <= 1
 
 
+@pytest.fixture(scope="module")
+def masked_pipes(pipes):
+    """The same weights under a config with instance-masked fuser attention."""
+    cfg, jpipe, ppipe, meta = pipes
+    mcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, use_masked_att=True))
+    return (JaxPipeline(mcfg, jpipe.params),
+            InstanceDiffusionPipeline(port_config(mcfg), ppipe.unet, ppipe.vae, ppipe.clip,
+                                      ppipe.tokenizer))
+
+
+@pytest.mark.parametrize("mis,masked", [
+    (0.5, False),   # Multi-Instance Sampler: 2 trajectory steps, then 2 global
+    (0.0, True),    # instance-masked fuser attention
+    (0.5, True),    # both
+])
+def test_generate_matches_jax_on_mis_and_masked_paths(pipes, masked_pipes, mis, masked):
+    """uint8 within one level of the JAX pipeline with MIS (mean merge,
+    trajectory 0's eps history carried across the merge) and with the
+    fuser masked by instance labels (the CFG null half unmasked)."""
+    cfg, jpipe, ppipe, meta = pipes
+    if masked:
+        jpipe, ppipe = masked_pipes
+    mc = cfg.model
+    x0 = np.random.default_rng(1).standard_normal(
+        (2, mc.image_size, mc.image_size, mc.in_channels)).astype(np.float32)
+    ref = jpipe.generate(meta, num_images=2, steps=4, mis=mis, compute_dtype=jnp.float32,
+                         initial_latents=x0)
+    out = ppipe.generate(meta, num_images=2, steps=4, mis=mis, initial_latents=x0)
+    assert out.shape == ref.shape and out.dtype == np.uint8
+    assert int(ref.max()) - int(ref.min()) > 10
+    assert np.abs(out.astype(int) - ref.astype(int)).max() <= 1
+
+
 def test_generate_seeded_noise_is_deterministic(pipes):
     _, _, ppipe, meta = pipes
     a = ppipe.generate(meta, num_images=1, steps=4, mis=0.0, seed=3)
@@ -87,9 +124,19 @@ def test_generate_keeps_grounding_fp32_with_bf16_weights(pipes, monkeypatch):
     assert seen == [(torch.float32,) * 3] * 2  # cond and null grounding
 
 
+def test_generate_default_mis_is_the_configs(pipes):
+    """mis=None resolves to the config's 0.36 for PLMS (as in the JAX
+    pipeline): at 4 steps one trajectory step, then 3 global steps."""
+    _, _, ppipe, meta = pipes
+    assert ppipe.cfg.sampler.mis == 0.36
+    a = ppipe.generate(meta, num_images=1, steps=4, seed=5)
+    b = ppipe.generate(meta, num_images=1, steps=4, mis=0.36, seed=5)
+    c = ppipe.generate(meta, num_images=1, steps=4, mis=0.0, seed=5)
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c)
+
+
 @pytest.mark.parametrize("kwargs", [
-    {"mis": 0.36},
-    {},                           # the config's default mis (0.36)
     {"mis": 0.0, "sampler": "dpm"},
     {"mis": 0.0, "sampler": "ddim"},
 ])
