@@ -25,6 +25,24 @@ Phases, in order (each prints its lines; any failure exits non-zero):
              mis=0.36: Multi-Instance Sampler over 5 trajectories, fuser
              masked by instance labels), warm-up then timed requests, with
              the same checks
+  train      the training step at full width (Config(), B=4 at 512 px, 30
+             objects, the batch bench.py builds from numpy seed 0, densified
+             weights, frozen weights bf16, remat on): (a) one step's loss
+             and trainable gradients with the kernels against
+             plain_kernels(), per parameter group; (b) every trainable
+             gradient finite, every group's non-zero, no frozen gradient;
+             (c) 2 warm-up and 10 timed steps: s/step, samples/s, peak
+             memory, launches per step against the expected counts; (d) the
+             "mask" preset with use_masked_att: 3 steps through the labeled
+             trainable kernels
+The kernels phase also holds the training kernels (forward with
+log-sum-exp, dq, dk/dv, unlabeled and labeled) against their plain versions
+at the training shapes. Every kernel line gives its time, its plain
+version's, a PyTorch library call's where one computes the same function
+(`library_ms`; a yardstick only, the port never calls it) and its bound:
+the larger of its FLOPs over 989 TFLOP/s (bf16 tensor cores; 67 TFLOP/s
+fp32 for the norms) and its bytes (each input read once, each output
+written once) over 3.35 TB/s, the H100 SXM's published peaks.
 Then the card's nvidia-smi line, one JSON line describing the kernels and,
 last, the device line {"ok": true, "device": {...}}.
 
@@ -83,6 +101,24 @@ KERNELS = {
     "fused_ff_geglu": (
         "cuda", "instancediffusion_tpu_torch/csrc/geglu_ff.cu",
         "instancediffusion_tpu/kernels/geglu_ff.py:63"),
+    "flash_attention_trainable": (
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention.cu",
+        "instancediffusion_tpu/kernels/flash_attention.py:539"),
+    "flash_attention_trainable_labeled": (
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention.cu",
+        "instancediffusion_tpu/kernels/flash_attention.py:580"),
+    "flash_attention_bwd_dq": (
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention_bwd.cu",
+        "instancediffusion_tpu/kernels/flash_attention.py:594"),
+    "flash_attention_bwd_dq_labeled": (
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention_bwd.cu",
+        "instancediffusion_tpu/kernels/flash_attention.py:753"),
+    "flash_attention_bwd_dkv": (
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention_bwd.cu",
+        "instancediffusion_tpu/kernels/flash_attention.py:651"),
+    "flash_attention_bwd_dkv_labeled": (
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention_bwd.cu",
+        "instancediffusion_tpu/kernels/flash_attention.py:793"),
 }
 
 # kernel vs plain: max |kernel - plain| <= tol * max |plain|. Both sides
@@ -97,6 +133,36 @@ FP32_REL_TOL = 1e-5
 # summation order differs, carried through 18 blocks and the token MLPs
 GROUNDING_REL_TOL = 1e-4
 UNET_REL_TOL = 5e-2  # whole bf16 UNet, kernels vs plain (rel. to max |eps|)
+# training kernels: dq/dk/dv in bf16 against fp32 plain versions; ds and p
+# are rounded to bf16 before their products (relative error ~2^-9 per
+# term, summed over thousands of keys or rows)
+GRAD_REL_TOL = 2e-2
+LSE_ATOL = 1e-3  # fp32 log-sum-exp (base 2): summation order only
+# whole training step, kernels vs plain_kernels(), bf16 activations: the
+# loss, and per parameter group ||g_kernel - g_plain|| / ||g_plain||
+TRAIN_LOSS_REL_TOL = 1e-2
+TRAIN_GRAD_REL_TOL = 5e-2
+TRAIN_B = 4
+TRAIN_IMAGE = 512
+TRAIN_STEPS = 10
+# launches per full-width training step with remat: 20 long attentions per
+# forward (10 self + 10 fuser at ds1 and ds2), the forward run twice; 19
+# backwards, because the first ds1 self-attention comes before every
+# trainable parameter (its inputs need no gradient, so autograd skips its
+# backward; the JAX step differentiates the frozen weights too and runs
+# all 20)
+TRAIN_LAUNCHES = {"flash_attention_trainable": 40, "flash_attention_bwd_dq": 19,
+                  "flash_attention_bwd_dkv": 19}
+# with use_masked_att the 5 ds1 fusers take the labeled kernels
+MASKED_LAUNCHES = {"flash_attention_trainable": 30, "flash_attention_trainable_labeled": 10,
+                   "flash_attention_bwd_dq": 14, "flash_attention_bwd_dq_labeled": 5,
+                   "flash_attention_bwd_dkv": 14, "flash_attention_bwd_dkv_labeled": 5}
+
+# the H100 SXM's published peaks (dense): bf16 tensor cores, fp32 without
+# them, HBM3
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 # kernels each path must launch in its timed requests; no path of either
 # package reaches flash_attention_packed_labeled (labels exist at ds1 only,
@@ -105,6 +171,8 @@ UNET_REL_TOL = 5e-2  # whole bf16 UNet, kernels vs plain (rel. to max |eps|)
 PLAIN_PATH = ("flash_attention", "flash_attention_packed", "fused_group_norm",
               "fused_layer_norm", "fused_ff_geglu")
 MIS_PATH = PLAIN_PATH + ("flash_attention_labeled",)
+TRAIN_PATH = tuple(TRAIN_LAUNCHES) + ("fused_group_norm", "fused_layer_norm", "fused_ff_geglu")
+MASKED_TRAIN_PATH = tuple(MASKED_LAUNCHES)
 ONLY_KERNELS_PHASE = {"flash_attention_packed_labeled": "kernels phase only: no path reaches it"}
 
 
@@ -168,9 +236,53 @@ def meta_segs(size: int = 512):
     return segs
 
 
+def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _attn_work(kind, b, h, n, m, c, mask=None):
+    """(FLOPs, bytes) of one attention kernel call. kind: "fwd" (q k^T and
+    p v), "fwd_lse" (also writes lse), "dq" (s, dp, dq) or "dkv" (s, dp, dv,
+    dk). Labeled calls count the kept (q, key) pairs only; bf16 operands,
+    fp32 lse and delta, int32 labels."""
+    pairs = b * n * m if mask is None else int(mask.sum().item())
+    n_mm = {"fwd": 2, "fwd_lse": 2, "dq": 3, "dkv": 4}[kind]
+    rows = {"fwd": 2 * n + 2 * m, "fwd_lse": 2 * n + 2 * m, "dq": 3 * n + 2 * m,
+            "dkv": 2 * n + 4 * m}[kind]  # q/out/dO/dq rows, k/v/dk/dv rows
+    nbytes = 2 * b * h * c * rows
+    nbytes += {"fwd": 0, "fwd_lse": 4, "dq": 8, "dkv": 8}[kind] * b * h * n
+    if mask is not None:
+        nbytes += 8 * b * max(n, m)
+    return 2 * n_mm * h * pairs * c, nbytes
+
+
+def _close(out, ref, tol, lse_at=None):
+    """(max abs err, max abs err / max |ref|, ok) of a tensor or a tuple;
+    the tuple entry at `lse_at` (fp32 log-sum-exp) is held to LSE_ATOL
+    instead."""
+    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    err = rel = 0.0
+    ok = True
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        if o.shape != r.shape or not bool(o.float().isfinite().all()):
+            return float("inf"), float("inf"), False
+        e = (o.float() - r.float()).abs().max().item()
+        if i == lse_at:
+            ok &= e <= LSE_ATOL
+            continue
+        err, rel = max(err, e), max(rel, e / max(r.float().abs().max().item(), 1e-12))
+        ok &= e <= tol * r.float().abs().max().item()
+    return err, rel, ok
+
+
 def _cases(torch, dev):
-    """(kernel name, label, kernel fn, plain fn, tolerance) at the paths'
-    per-sample shapes, batch 2."""
+    """Case dicts: name, label, kern, plain, tol, work (FLOPs, bytes,
+    peak) and library (one PyTorch call computing the same function, or
+    None), at the paths' per-sample shapes, batch 2."""
+    import torch.nn.functional as F
+
     from instancediffusion_tpu_torch.kernels import flash_attention as fa
     from instancediffusion_tpu_torch.kernels import geglu_ff as ff
     from instancediffusion_tpu_torch.kernels import norms
@@ -178,44 +290,50 @@ def _cases(torch, dev):
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf, fp = torch.bfloat16, torch.float32
+    sdpa = F.scaled_dot_product_attention
 
     def randn(*shape, std=1.0, dtype=bf):
         return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    def case(name, label, kern, plain, tol, work, library, peak=PEAK_BF16):
+        return dict(name=name, label=label, kern=kern, plain=plain, tol=tol,
+                    work=(*work, peak), library=library)
 
     cases = []
     # split-heads attention at ds1 (c=40): head views of (B,N,H*c)
     # projections, as the UNet passes them; fuser over the unpadded 4280
     # keys and over 4608 pre-padded keys with kv_len=4280
+    heads40 = lambda t: t.reshape(2, t.shape[1], 8, 40).transpose(1, 2)
+    heads80 = lambda t: t.reshape(2, t.shape[1], 8, 80).transpose(1, 2)
     for label, n, m, kv_len in (("self 4096x4096", 4096, 4096, None),
                                 ("fuser 4096x4280", 4096, 4280, None),
                                 ("fuser 4096x4608 kv_len=4280", 4096, 4608, 4280)):
         q, k, v = randn(2, n, 320), randn(2, m, 320), randn(2, m, 320)
-        heads = lambda t: t.reshape(2, t.shape[1], 8, 40).transpose(1, 2)
-        qh, kh, vh = heads(q), heads(k), heads(v)
+        qh, kh, vh = heads40(q), heads40(k), heads40(v)
         mm = m if kv_len is None else kv_len
-        cases.append((
+        cases.append(case(
             "flash_attention", label,
             lambda qh=qh, kh=kh, vh=vh, kv=kv_len: fa.flash_attention(qh, kh, vh, kv_len=kv),
             lambda qh=qh, kh=kh, vh=vh, mm=mm: sdpa_xla(qh, kh[:, :, :mm], vh[:, :, :mm]),
-            BF16_REL_TOL,
-        ))
+            BF16_REL_TOL, _attn_work("fwd", 2, 8, n, mm, 40),
+            lambda qh=qh, kh=kh, vh=vh, mm=mm: sdpa(qh, kh[:, :, :mm], vh[:, :, :mm])))
     # the masked ds1 fuser: labels of META's boxes at 64x64 (one sample
     # masked, one open), over 4280 keys and over 4608 with kv_len=4280
     labels64 = meta_labels(torch, dev, 64)
     for label, m, kv_len in (("fuser 4096x4280 labeled", 4280, 4280),
                              ("fuser 4096x4608 kv_len=4280 labeled", 4608, 4280)):
         q, k, v = randn(2, 4096, 320), randn(2, m, 320), randn(2, m, 320)
-        heads = lambda t: t.reshape(2, t.shape[1], 8, 40).transpose(1, 2)
-        qh, kh, vh = heads(q), heads(k), heads(v)
+        qh, kh, vh = heads40(q), heads40(k), heads40(v)
         mask = labels_to_dense(*labels64)[:, :, :4096, :kv_len]
-        cases.append((
+        cases.append(case(
             "flash_attention_labeled", label,
             lambda qh=qh, kh=kh, vh=vh, kv=kv_len: fa.flash_attention(
                 qh, kh, vh, labels=labels64, kv_len=kv),
             lambda qh=qh, kh=kh, vh=vh, kv=kv_len, mask=mask: sdpa_xla(
                 qh, kh[:, :, :kv], vh[:, :, :kv], mask=mask),
-            BF16_REL_TOL,
-        ))
+            BF16_REL_TOL, _attn_work("fwd", 2, 8, 4096, kv_len, 40, mask),
+            lambda qh=qh, kh=kh, vh=vh, kv=kv_len, mask=mask: sdpa(
+                qh, kh[:, :, :kv], vh[:, :, :kv], attn_mask=mask)))
     # packed attention at ds2 (c=80)
     for label, n, m, kv_len in (("self 1024x1024", 1024, 1024, None),
                                 ("fuser 1024x1208", 1024, 1208, None),
@@ -224,15 +342,15 @@ def _cases(torch, dev):
         mm = m if kv_len is None else kv_len
 
         def plain(q=q, k=k, v=v, mm=mm):
-            heads = lambda t: t.reshape(2, t.shape[1], 8, 80).transpose(1, 2)
-            out = sdpa_xla(heads(q), heads(k[:, :mm]), heads(v[:, :mm]))
+            out = sdpa_xla(heads80(q), heads80(k[:, :mm]), heads80(v[:, :mm]))
             return out.transpose(1, 2).reshape(2, q.shape[1], 640)
 
-        cases.append((
+        cases.append(case(
             "flash_attention_packed", label,
             lambda q=q, k=k, v=v, kv=kv_len: fa.flash_attention_packed(q, k, v, 8, kv_len=kv),
-            plain, BF16_REL_TOL,
-        ))
+            plain, BF16_REL_TOL, _attn_work("fwd", 2, 8, n, mm, 80),
+            lambda q=q, k=k, v=v, mm=mm: sdpa(heads80(q), heads80(k[:, :mm]),
+                                              heads80(v[:, :mm]))))
     # packed attention with labels of META's boxes at a 32x32 raster (1024
     # visual + 184 grounding keys)
     labels32 = meta_labels(torch, dev, 32)
@@ -240,17 +358,17 @@ def _cases(torch, dev):
     mask32 = labels_to_dense(*labels32)[:, :, :1024, :1208]
 
     def plain_packed_labeled(q=q, k=k, v=v):
-        heads = lambda t: t.reshape(2, t.shape[1], 8, 80).transpose(1, 2)
-        out = sdpa_xla(heads(q), heads(k), heads(v), mask=mask32)
+        out = sdpa_xla(heads80(q), heads80(k), heads80(v), mask=mask32)
         return out.transpose(1, 2).reshape(2, 1024, 640)
 
-    cases.append((
+    cases.append(case(
         "flash_attention_packed_labeled", "1024x1208 labeled (32x32 raster)",
         lambda q=q, k=k, v=v: fa.flash_attention_packed(q, k, v, 8, labels=labels32),
-        plain_packed_labeled, BF16_REL_TOL,
-    ))
+        plain_packed_labeled, BF16_REL_TOL, _attn_work("fwd", 2, 8, 1024, 1208, 80, mask32),
+        lambda q=q, k=k, v=v: sdpa(heads80(q), heads80(k), heads80(v), attn_mask=mask32)))
     # GroupNorm: UNet (eps 1e-5 res/out with SiLU, 1e-6 transformer) and
-    # VAE decoder rows (eps 1e-6)
+    # VAE decoder rows (eps 1e-6); ~8 fp32 operations per element. The
+    # library call, F.group_norm, has no fused SiLU
     for n, c, eps, act in ((4096, 320, 1e-5, "silu"), (4096, 320, 1e-6, "none"),
                            (4096, 960, 1e-5, "silu"), (1024, 640, 1e-5, "silu"),
                            (256, 1280, 1e-5, "silu"), (64, 2560, 1e-5, "silu"),
@@ -258,12 +376,13 @@ def _cases(torch, dev):
                            (4096, 512, 1e-6, "none")):
         x = randn(2, n, c, std=3.0) + 0.5
         sc, bi = randn(c), randn(c)
-        cases.append((
+        cases.append(case(
             "fused_group_norm", f"({n},{c}) eps={eps} {act}",
             lambda x=x, sc=sc, bi=bi, e=eps, a=act: norms.fused_group_norm(x, sc, bi, 32, e, a),
             lambda x=x, sc=sc, bi=bi, e=eps, a=act: norms.group_norm_plain(x, sc, bi, 32, e, a),
-            BF16_REL_TOL,
-        ))
+            BF16_REL_TOL, (8 * 2 * n * c, 2 * 2 * n * c * 2 + 8 * c),
+            lambda x=x, sc=sc, bi=bi, e=eps: F.group_norm(x.transpose(1, 2), 32, sc, bi, e),
+            PEAK_FP32))
     # LayerNorm: bf16 UNet rows incl. fuser concat rows and CLIP; fp32
     # ConvNeXt rows (the grounding tokenizer runs in fp32, at batch 1)
     for n, c, eps, dt in ((4096, 320, 1e-5, bf), (4280, 320, 1e-5, bf),
@@ -273,55 +392,121 @@ def _cases(torch, dev):
                           (1024, 384, 1e-6, fp), (256, 768, 1e-6, fp)):
         x = (randn(2, n, c, std=2.0, dtype=dt) + 0.3).to(dt)
         sc, bi = randn(c), randn(c)
-        cases.append((
+        cases.append(case(
             "fused_layer_norm", f"({n},{c}) eps={eps} {str(dt)[6:]}",
             lambda x=x, sc=sc, bi=bi, e=eps: norms.fused_layer_norm(x, sc, bi, e),
             lambda x=x, sc=sc, bi=bi, e=eps: norms.layer_norm_plain(x, sc, bi, e),
             BF16_REL_TOL if dt == bf else FP32_REL_TOL,
-        ))
-    # GEGLU FF at the three transformer widths (ds8 mid block too)
+            (8 * 2 * n * c, 2 * 2 * n * c * x.element_size() + 8 * c),
+            lambda x=x, sc=sc, bi=bi, e=eps: F.layer_norm(x, (x.shape[-1],), sc.to(x.dtype),
+                                                          bi.to(x.dtype), e),
+            PEAK_FP32))
+    # GEGLU FF at the three transformer widths (ds8 mid block too); no one
+    # PyTorch call computes it
     for n, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
         inner = 4 * c
         x = randn(2, n, c)
         w1, b1 = randn(2 * inner, c, std=c ** -0.5), randn(2 * inner, std=0.1)
         w2, b2 = randn(c, inner, std=inner ** -0.5), randn(c, std=0.1)
-        cases.append((
+        cases.append(case(
             "fused_ff_geglu", f"({n},{c}) inner={inner}",
             lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ff.fused_ff_geglu(x, w1, b1, w2, b2),
             lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ff.ff_geglu_plain(x, w1, b1, w2, b2),
             BF16_REL_TOL,
-        ))
+            (6 * 2 * n * c * inner, 2 * (2 * 2 * n * c + 3 * inner * c) + 4 * (2 * inner + c)),
+            None))
+    cases += _train_cases(torch, dev, randn, case, labels64)
+    return cases
+
+
+def _train_cases(torch, dev, randn, case, labels64):
+    """The training kernels at the training step's attention shapes (batch
+    2): K6 (out and lse), dq and dk/dv against their plain versions, on the
+    residuals of the kernel forward. The library call for K6 is PyTorch's
+    SDPA forward with inputs that need gradients (it then keeps its own
+    statistics); dq and dk/dv have none of their own (SDPA's backward
+    computes both: its time is printed beside K6's line)."""
+    import torch.nn.functional as F
+
+    from instancediffusion_tpu_torch.kernels import flash_attention as fa
+    from instancediffusion_tpu_torch.ops.attention import labels_to_dense
+
+    cases = []
+    for label, n, m, c, labeled in (("ds1 self 4096x4096", 4096, 4096, 40, False),
+                                    ("ds1 fuser 4096x4280", 4096, 4280, 40, False),
+                                    ("ds2 self 1024x1024", 1024, 1024, 80, False),
+                                    ("ds2 fuser 1024x1208", 1024, 1208, 80, False),
+                                    ("ds1 fuser 4096x4280 labeled", 4096, 4280, 40, True)):
+        heads = lambda t, c=c: t.reshape(2, t.shape[1], 8, c).transpose(1, 2)
+        q, k, v, do = (heads(randn(2, s, 8 * c)) for s in (n, m, m, n))
+        labels = labels64 if labeled else None
+        mask = labels_to_dense(*labels64)[:, :, :n, :m] if labeled else None
+        with torch.no_grad():
+            out, lse = fa.flash_attention_fwd_lse(q, k, v, labels)
+        sfx = "_labeled" if labeled else ""
+        need = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+        def sdpa_fwd(need=need, mask=mask):
+            return F.scaled_dot_product_attention(*need, attn_mask=mask)
+
+        def sdpa_fwd_bwd(need=need, mask=mask, do=do):
+            F.scaled_dot_product_attention(*need, attn_mask=mask).backward(do)
+
+        cases.append(case(
+            "flash_attention_trainable" + sfx, label,
+            lambda q=q, k=k, v=v, lb=labels: fa.flash_attention_fwd_lse(q, k, v, lb),
+            lambda q=q, k=k, v=v, lb=labels: fa.flash_attention_fwd_lse_plain(q, k, v, lb),
+            BF16_REL_TOL, _attn_work("fwd_lse", 2, 8, n, m, c, mask), sdpa_fwd))
+        cases[-1].update(sdpa_fwd_bwd=sdpa_fwd_bwd, lse_at=1)
+        res = (q, k, v, out, lse, do, labels)
+        cases.append(case(
+            "flash_attention_bwd_dq" + sfx, label,
+            lambda r=res: fa.flash_attention_bwd_dq(*r),
+            lambda r=res: fa.flash_attention_bwd_plain(*r)[0],
+            GRAD_REL_TOL, _attn_work("dq", 2, 8, n, m, c, mask), None))
+        cases.append(case(
+            "flash_attention_bwd_dkv" + sfx, label,
+            lambda r=res: fa.flash_attention_bwd_dkv(*r),
+            lambda r=res: fa.flash_attention_bwd_plain(*r)[1:],
+            GRAD_REL_TOL, _attn_work("dkv", 2, 8, n, m, c, mask), None))
     return cases
 
 
 def phase_kernels(torch, dev) -> dict:
-    """Compare every kernel with its plain version and time both (median of
-    10 runs, CUDA events) at every case."""
+    """Compare every kernel with its plain version and time both, and the
+    library call where there is one (median of 10 runs, CUDA events), at
+    every case. The JSON line reports each kernel's first case."""
     results = {}
     failures = []
-    for name, label, kern, plain, tol in _cases(torch, dev):
+    for cs in _cases(torch, dev):
+        name, label, kern, plain, tol = (cs[k] for k in ("name", "label", "kern", "plain",
+                                                          "tol"))
         out = kern()
         ref = plain()
         torch.cuda.synchronize()
-        if out.shape != ref.shape or not torch.isfinite(out.float()).all():
-            failures.append(f"{name} {label}: shape {tuple(out.shape)} vs "
-                            f"{tuple(ref.shape)} or non-finite output")
-            continue
-        err = (out.float() - ref.float()).abs().max().item()
-        rel = err / max(ref.float().abs().max().item(), 1e-12)
-        ok = rel <= tol
+        err, rel, ok = _close(out, ref, tol, cs.get("lse_at"))
+        del out, ref
         entry = results.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["max_rel_err"] = max(entry["max_rel_err"], rel)
         ms, plain_ms = median_ms(kern), median_ms(plain)
-        if "ms" not in entry:  # the JSON line reports each kernel's first case
-            entry["ms"], entry["plain_ms"] = ms, plain_ms
+        lib_ms = None if cs["library"] is None else median_ms(cs["library"])
+        flops, nbytes, peak = cs["work"]
+        bound_ms, bound_by = _bound(flops, nbytes, peak)
+        if "ms" not in entry:
+            entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        extra = ""
+        if "sdpa_fwd_bwd" in cs:
+            extra = f" sdpa_fwd_bwd_ms={median_ms(cs['sdpa_fwd_bwd']):.4f}"
+        lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
         log(f"kernels: {name} {label}: max_abs_err={err:.4g} rel={rel:.3g} "
             f"tol={tol:g} {'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f}")
+            f"plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={bound_ms:.4f} "
+            f"({bound_by}) flops={flops:.4g} bytes={nbytes:.4g}{extra}")
         if not ok:
-            failures.append(f"{name} {label}: rel err {rel:.3g} > {tol:g}")
-        del out, ref
+            failures.append(f"{name} {label}: rel err {rel:.3g} > {tol:g} (or lse > "
+                            f"{LSE_ATOL})")
     if failures:
         raise RuntimeError("kernel checks failed:\n  " + "\n  ".join(failures))
     return results
@@ -508,6 +693,205 @@ def phase_request(torch, pipe, card: str, name: str, meta: dict, mis: float,
     return line, launches
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def train_batch(torch, dev, cfg, b: int) -> dict:
+    """The synthetic training batch bench.py builds (numpy seed 0): 512 px
+    images, 30 objects with random boxes, points, scribbles, polygons and
+    phrase embeddings, every object live, no instance masks."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    g = cfg.model.grounding_tokenizer
+    n = cfg.model.max_objs
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    image = f32(rng.standard_normal((b, TRAIN_IMAGE, TRAIN_IMAGE, 3)))
+    ids = torch.as_tensor(rng.integers(0, 49408, (b, 77)).astype(np.int32), device=dev)
+    boxes = f32(rng.uniform(0, 1, (b, n, 4)))
+    emb = f32(rng.standard_normal((b, n, 768)))
+    points = f32(rng.uniform(0, 1, (b, n, 2)))
+    scribbles = f32(rng.uniform(0, 1, (b, n, g.n_scribble_points * 2)))
+    polygons = f32(rng.uniform(0, 1, (b, n, g.n_polygon_points * 2)))
+    ones = torch.ones((b, n), device=dev)
+    return {"image": image, "caption_ids": ids, "boxes": boxes, "masks": ones,
+            "text_masks": ones, "text_embeddings": emb, "points": points,
+            "scribbles": scribbles, "polygons": polygons,
+            "segs": torch.zeros((b, n, g.seg_resize_input, g.seg_resize_input), device=dev)}
+
+
+def _param_group(cfg):
+    """name -> parameter group: "fuser_ds<k>" by the resolution of the
+    spatial transformer holding the fuser, "position_net", "scaleu"."""
+    from instancediffusion_tpu_torch.models.unet import build_plan
+
+    inp, mid, out = build_plan(cfg.model)
+    ds_of = {}
+    for part, plan in (("input_blocks", inp), ("output_blocks", out)):
+        for i, specs in enumerate(plan):
+            for j, spec in enumerate(specs):
+                if spec.kind == "attn":
+                    ds_of[f"{part}.{i}.{j}."] = spec.ds
+    for j, spec in enumerate(mid):
+        if spec.kind == "attn":
+            ds_of[f"middle_block.{j}."] = spec.ds
+
+    def group(name: str) -> str:
+        if ".fuser." in name:
+            return "fuser_ds%d" % next(d for p, d in ds_of.items() if name.startswith(p))
+        return name.split(".")[0]
+
+    return group
+
+
+def _per_step(launches: dict, names, steps: int) -> dict:
+    return {k: launches.get(k, 0) / steps for k in names}
+
+
+def phase_train(torch, dev, card: str) -> tuple[dict, dict]:
+    """(launches of the timed steps, launches of the masked steps)."""
+    import contextlib
+
+    from instancediffusion_tpu_torch import kernels
+    from instancediffusion_tpu_torch.config import Config, apply_test_preset
+    from instancediffusion_tpu_torch.models import unifusion
+    from instancediffusion_tpu_torch.nn.core import plain_kernels
+    from instancediffusion_tpu_torch.ops.schedules import make_diffusion_schedule
+    from instancediffusion_tpu_torch.train import optimizer as popt
+    from instancediffusion_tpu_torch.train import train_step as pts
+
+    cfg = Config()
+    tc, dc = cfg.train, cfg.diffusion
+    t0 = time.perf_counter()
+    state = pts.init_train_state(cfg, seed=0, device=dev)
+    densify_(state.unet, 11)
+    densify_(state.vae, 12)
+    densify_(state.clip, 13)
+    state.ema = popt.init_ema(state.unet)
+    state.optimizer, state.scheduler = popt.make_optimizer(
+        state.unet, tc.base_learning_rate, tc.weight_decay, tc.warmup_steps, tc.scheduler_type,
+        tc.total_iters)
+    state = pts.cast_frozen_bf16(state)
+    diffusion = make_diffusion_schedule(dc.beta_schedule, dc.timesteps, dc.linear_start,
+                                        dc.linear_end)
+    batch = train_batch(torch, dev, cfg, TRAIN_B)
+    latent = pts.latent_shape(cfg, TRAIN_IMAGE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    trainable = popt.trainable_parameters(state.unet)
+    torch.cuda.synchronize()
+    log(f"train: init (fp32 random init, densify, AdamW, frozen -> bf16) "
+        f"{time.perf_counter() - t0:.1f}s; trainable parameters "
+        f"{popt.count_trainable(state.unet)}")
+
+    # (a) one step's loss and gradients, kernels vs plain_kernels(), on
+    # draws that drop nothing (every group then takes part)
+    loss_fn = pts.make_loss_fn(cfg, diffusion)
+    draws = pts.sample_draws(gen, TRAIN_B, latent)
+    draws.drop_all, draws.drops = False, unifusion.ModalityDrops()
+
+    def loss_and_grads(plain: bool):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            loss = loss_fn(state, batch, draws)
+            loss.backward()
+        grads = {n: p.grad for n, p in trainable.items()}
+        for p in trainable.values():
+            p.grad = None
+        return loss.item(), grads
+
+    loss_k, g_k = loss_and_grads(False)
+    # (b) liveness of the kernel path's gradients
+    frozen = [n for n, p in state.unet.named_parameters()
+              if not popt.is_trainable(n) and p.grad is not None]
+    bad = [n for n, g in g_k.items() if g is None or not bool(torch.isfinite(g).all())]
+    if frozen or bad:
+        raise RuntimeError(f"train: frozen parameters with gradients {frozen[:5]}, "
+                           f"trainable ones without finite gradients {bad[:5]}")
+    loss_p, g_p = loss_and_grads(True)
+    group = _param_group(cfg)
+    sums: dict = {}
+    for n in g_k:
+        d = sums.setdefault(group(n), [0.0, 0.0, 0.0])
+        d[0] += (g_k[n].float() - g_p[n].float()).pow(2).sum().item()
+        d[1] += g_p[n].float().pow(2).sum().item()
+        d[2] += g_k[n].float().pow(2).sum().item()
+    del g_k, g_p
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    rels = {k: math.sqrt(d[0] / d[1]) if d[1] > 0 else float("inf") for k, d in sums.items()}
+    want = {group(n) for n in trainable}  # Config(): fusers at ds1/2/4/8, position_net, scaleu
+    dead = sorted(k for k, d in sums.items() if not d[2] > 0)
+    log(f"train (a): B={TRAIN_B} loss kernels={loss_k:.6f} plain={loss_p:.6f} "
+        f"rel={loss_rel:.3g} tol={TRAIN_LOSS_REL_TOL}; gradient rel err by group "
+        + ", ".join(f"{k}={v:.3g}" for k, v in sorted(rels.items()))
+        + f" tol={TRAIN_GRAD_REL_TOL}")
+    log("train (b): every trainable gradient finite, no frozen gradient; "
+        "group gradient norms "
+        + ", ".join(f"{k}={math.sqrt(d[2]):.4g}" for k, d in sorted(sums.items())))
+    if set(sums) != want or dead:
+        raise RuntimeError(f"train: groups {sorted(sums)} (want {sorted(want)}), zero "
+                           f"gradient in {dead}")
+    if not loss_rel <= TRAIN_LOSS_REL_TOL or any(not v <= TRAIN_GRAD_REL_TOL
+                                                 for v in rels.values()):
+        raise RuntimeError(f"train: kernels vs plain loss rel {loss_rel:.3g}, gradients "
+                           f"{rels}")
+
+    # (c) 2 warm-up steps, then TRAIN_STEPS timed ones (draws made first)
+    step = pts.make_train_step(cfg, diffusion)
+    for _ in range(2):
+        state, m = step(state, batch, pts.sample_draws(gen, TRAIN_B, latent))
+    timed = [pts.sample_draws(gen, TRAIN_B, latent) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [step(state, batch, d)[1] for d in timed]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    per = _per_step(launches, TRAIN_PATH, TRAIN_STEPS)
+    losses = [float(m["loss"]) for m in metrics]
+    loss_list = ", ".join("%.4f" % x for x in losses)
+    if any(m["skipped"] for m in metrics) or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"train: non-finite losses {losses}")
+    wrong = {k: per[k] for k, n in TRAIN_LAUNCHES.items() if per[k] != n}
+    missing = [k for k in TRAIN_PATH if per[k] <= 0]
+    if wrong or missing:
+        raise RuntimeError(f"train: launches per step {per} (expected {TRAIN_LAUNCHES})")
+    log(f"train (c): B={TRAIN_B} {TRAIN_IMAGE}px remat bf16, {TRAIN_STEPS} steps in {secs:.3f}s: "
+        f"{secs / TRAIN_STEPS:.4f} s/step, {TRAIN_B * TRAIN_STEPS / secs:.3f} samples/s, "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB on {card}; losses "
+        f"{loss_list}; launches per step {per}")
+
+    # (d) masked training: the "mask" preset with use_masked_att
+    mcfg = apply_test_preset(Config(), "mask")
+    mcfg = dataclasses.replace(mcfg, model=dataclasses.replace(mcfg.model, use_masked_att=True))
+    mstep = pts.make_train_step(mcfg, diffusion)
+    mdraws = [pts.sample_draws(gen, TRAIN_B, latent) for _ in range(3)]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    mmetrics = [mstep(state, batch, d)[1] for d in mdraws]
+    torch.cuda.synchronize()
+    msecs = time.perf_counter() - t0
+    mlaunches = dict(kernels.LAUNCHES)
+    mper = _per_step(mlaunches, MASKED_TRAIN_PATH, 3)
+    if any(m["skipped"] for m in mmetrics) or mper != MASKED_LAUNCHES:
+        raise RuntimeError(f"train (d): skipped {[m['skipped'] for m in mmetrics]}, "
+                           f"launches per step {mper} (expected {MASKED_LAUNCHES})")
+    loss = pts.make_loss_fn(mcfg, diffusion)(state, batch, mdraws[-1])
+    loss.backward()
+    bad = [n for n, p in trainable.items() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    state.optimizer.zero_grad(set_to_none=True)
+    if bad:
+        raise RuntimeError(f"train (d): non-finite or missing gradients {bad[:5]}")
+    mlosses = ", ".join("%.4f" % float(m["loss"]) for m in mmetrics)
+    log(f"train (d): mask preset use_masked_att, 3 steps in {msecs:.3f}s "
+        f"({msecs / 3:.4f} s/step), losses {mlosses}, gradients finite; "
+        f"launches per step {mper}")
+    return launches, mlaunches
+
+
 def main() -> int:
     import torch
 
@@ -556,15 +940,24 @@ def main() -> int:
     line, launches_mis = phase_request(torch, mpipe, card, "mis", dict(META, segs=meta_segs()),
                                        0.36, MIS_PATH)
     log(line)
+    del pipe, mpipe
+    torch.cuda.empty_cache()
+
+    # the training step at full width, unmasked then masked
+    launches_train, launches_masked = phase_train(torch, dev, card)
 
     kernels_json = []
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]
-        by_path = {"slice": launches_plain.get(name, 0), "mis": launches_mis.get(name, 0)}
+        by_path = {"slice": launches_plain.get(name, 0), "mis": launches_mis.get(name, 0),
+                   "train": launches_train.get(name, 0),
+                   "train_masked": launches_masked.get(name, 0)}
         entry = {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
         }
         if name in ONLY_KERNELS_PHASE:
             entry["checked"] = ONLY_KERNELS_PHASE[name]

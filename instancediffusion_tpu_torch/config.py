@@ -1,9 +1,10 @@
 """Typed configuration of the port (counterpart of `instancediffusion_tpu/config.py`).
 
-The sections the generate path reads, copied field for field from the JAX
-package so the port imports nothing of it: diffusion schedule, UNet with its
-UniFusion grounding tokenizer, VAE, CLIP text tower and sampler defaults.
-The training, data and refiner sections stay with the JAX package.
+The sections the generate and training paths read, copied field for field
+from the JAX package so the port imports nothing of it: diffusion schedule,
+UNet with its UniFusion grounding tokenizer, VAE, CLIP text tower, sampler
+defaults, data and training knobs. The refiner section stays with the JAX
+package.
 `tests/test_torch_bridge.py` holds the copies' defaults equal to the JAX
 package's.
 """
@@ -124,12 +125,48 @@ class SamplerConfig:
 
 
 @dataclass
+class DataConfig:
+    image_size: int = 512
+    max_boxes_per_data: int = 30
+    prob_use_caption: float = 1.0
+    random_crop: bool = False
+    random_flip: bool = True
+    which_layer_text: str = "before"
+
+
+@dataclass
+class TrainConfig:
+    batch_size: int = 8
+    base_learning_rate: float = 5e-5
+    weight_decay: float = 0.0
+    warmup_steps: int = 5000
+    scheduler_type: str = "constant"  # or "cosine"
+    total_iters: int = 500000
+    save_every_iters: int = 10000
+    ckpt_every_iters: int = 2000
+    ema_rate: float = 0.9999
+    enable_ema: bool = True
+    gradient_checkpointing: bool = True
+    zero1: bool = True
+    seed: int = 123
+    workers: int = 4
+    official_ckpt_name: str = "v1-5-pruned-emaonly.ckpt"
+    name: str = "test"
+    output_dir: str = "OUTPUT"
+    wandb: bool = False
+    n_sample_batches: int = 10
+    sample_steps: int = 50
+
+
+@dataclass
 class Config:
     diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
     model: UNetConfig = field(default_factory=UNetConfig)
     autoencoder: VAEConfig = field(default_factory=VAEConfig)
     text_encoder: TextEncoderConfig = field(default_factory=TextEncoderConfig)
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def _update_dataclass(obj: Any, updates: dict[str, Any]) -> Any:

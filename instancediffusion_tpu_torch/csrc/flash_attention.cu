@@ -35,6 +35,15 @@
 // while its running max is still -inf the softmax subtracts 0 instead
 // (exp2f(-inf - -inf) would be NaN); a row with no kept key at all comes
 // out 0. No tile is skipped: masked tiles cost as much as kept ones.
+//
+// Log-sum-exp (template flag WITH_LSE; the training forward, K6, replacing
+// _fwd_with_stats): each q row also writes one fp32 value to lse[(b*H+h)*N +
+// row], in base 2 of the scaled scores: lse = m + log2(l), with m the row's
+// running max of s*scale*log2(e) and l its sum of exp2(s*scale*log2(e) - m),
+// so p_ij = exp2(s_ij*scale*log2(e) - lse_i). The backward kernels
+// (flash_attention_bwd.cu) and flash_attention_fwd_lse_plain use the same
+// base; lse_natural = lse * ln(2). A row with no kept key writes -inf. The
+// instantiations without it are the inference kernels, unchanged.
 #include "common.cuh"
 
 namespace {
@@ -127,11 +136,12 @@ __device__ __forceinline__ void load_q(__nv_bfloat16* dst, const __nv_bfloat16* 
     }
 }
 
-template <int DP, bool LABELED>
+template <int DP, bool LABELED, bool WITH_LSE>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    const int* __restrict__ lbits, const int* __restrict__ lopen, int label_stride, int H,
+    float* __restrict__ lse, const int* __restrict__ lbits, const int* __restrict__ lopen,
+    int label_stride, int H,
     int N, int kv_len, int c, long long qsb, long long qsh, long long qsr, long long ksb,
     long long ksh, long long ksr, long long vsb, long long vsh, long long vsr,
     long long osb, long long osh, long long osr, float scale) {
@@ -312,6 +322,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
     }
     const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f), inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+    if constexpr (WITH_LSE) {
+        if (t == 0) {  // the four lanes of a row hold the same m and l
+            float* lb = lse + (long long)blockIdx.y * N;
+            if (row_lo < N) lb[row_lo] = m_lo == -INFINITY ? -INFINITY : m_lo + log2f(fmaxf(l_lo, 1e-30f));
+            if (row_hi < N) lb[row_hi] = m_hi == -INFINITY ? -INFINITY : m_hi + log2f(fmaxf(l_hi, 1e-30f));
+        }
+    }
     __nv_bfloat16* ob = o + b * osb + h * osh;
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
@@ -326,50 +343,53 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     }
 }
 
-template <int DP, bool LABELED>
-int launch_impl(const void* q, const void* k, const void* v, void* o, const void* bits,
-                const void* open, int label_stride, int B, int H, int N, int kv_len, int c,
-                const long long* st, float scale, cudaStream_t stream) {
+template <int DP, bool LABELED, bool WITH_LSE>
+int launch_impl(const void* q, const void* k, const void* v, void* o, void* lse,
+                const void* bits, const void* open, int label_stride, int B, int H, int N,
+                int kv_len, int c, const long long* st, float scale, cudaStream_t stream) {
     const size_t smem = Smem<DP, LABELED>::bytes;
-    cudaError_t err = idt_allow_smem(flash_fwd_kernel<DP, LABELED>, smem);
+    cudaError_t err = idt_allow_smem(flash_fwd_kernel<DP, LABELED, WITH_LSE>, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((N + kBQ - 1) / kBQ, B * H);
-    flash_fwd_kernel<DP, LABELED><<<grid, kThreads, smem, stream>>>(
+    flash_fwd_kernel<DP, LABELED, WITH_LSE><<<grid, kThreads, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        static_cast<const int*>(bits), static_cast<const int*>(open), label_stride, H, N,
-        kv_len, c, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-        st[10], st[11], scale);
+        static_cast<float*>(lse), static_cast<const int*>(bits),
+        static_cast<const int*>(open), label_stride, H, N, kv_len, c, st[0], st[1], st[2],
+        st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale);
     return cudaGetLastError();
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, const void* bits,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* bits,
            const void* open, int label_stride, int B, int H, int N, int kv_len, int c,
            const long long* st, float scale, cudaStream_t stream) {
+#define IDT_FA_ARGS q, k, v, o, lse, bits, open, label_stride, B, H, N, kv_len, c, st, scale, stream
     if (bits != nullptr)
-        return launch_impl<DP, true>(q, k, v, o, bits, open, label_stride, B, H, N, kv_len, c,
-                                     st, scale, stream);
-    return launch_impl<DP, false>(q, k, v, o, nullptr, nullptr, 0, B, H, N, kv_len, c, st,
-                                  scale, stream);
+        return lse != nullptr ? launch_impl<DP, true, true>(IDT_FA_ARGS)
+                              : launch_impl<DP, true, false>(IDT_FA_ARGS);
+    return lse != nullptr ? launch_impl<DP, false, true>(IDT_FA_ARGS)
+                          : launch_impl<DP, false, false>(IDT_FA_ARGS);
+#undef IDT_FA_ARGS
 }
 
 }  // namespace
 
 // strides: 12 element strides, (batch, head, row) for q, k, v, o in order.
+// lse: null, or fp32 (B*H, N) log-sum-exp in base 2 (see the header).
 // bits/open: int32 instance labels, label_stride entries per batch row
 // covering max(N, kv_len) positions, or both null for unlabeled attention.
 // Requires c % 8 == 0, c <= 128, 16-byte aligned rows, kv_len >= 1.
 IDT_EXPORT int idt_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                   const void* bits, const void* open, int label_stride,
-                                   int B, int H, int N, int kv_len, int c,
+                                   void* lse, const void* bits, const void* open,
+                                   int label_stride, int B, int H, int N, int kv_len, int c,
                                    const long long* strides, float scale, void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if ((bits == nullptr) != (open == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-#define IDT_FA_CASE(n, dp)                                                                \
-    case n:                                                                               \
-        return launch<dp>(q, k, v, o, bits, open, label_stride, B, H, N, kv_len, c, strides, \
-                          scale, s);
+#define IDT_FA_CASE(n, dp)                                                                 \
+    case n:                                                                                \
+        return launch<dp>(q, k, v, o, lse, bits, open, label_stride, B, H, N, kv_len, c,    \
+                          strides, scale, s);
     switch ((c + 15) / 16) {
         IDT_FA_CASE(1, 16)
         IDT_FA_CASE(2, 32)

@@ -9,8 +9,9 @@ at once:
   * norm `scale` / `bias` -> `weight` / `bias`
   * every other leaf (embeddings, null tokens, gates, ScaleU) as it is.
 A JAX leaf without a port counterpart, a shape mismatch, or a port
-parameter left unset raises. The VAE port holds the decoder half only:
-pass `{"decoder": ..., "post_quant_conv": ...}` of the JAX VAE tree.
+parameter left unset raises. A VAE built with `encoder=True` takes the
+whole JAX VAE tree; one without takes `{"decoder": ..., "post_quant_conv":
+...}` of it.
 """
 
 from __future__ import annotations

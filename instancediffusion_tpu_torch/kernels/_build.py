@@ -1,7 +1,8 @@
 """Build `csrc/*.cu` with nvcc into one shared library and bind it by ctypes.
 
 Nothing is built at import. The first kernel call compiles every source of
-`instancediffusion_tpu_torch/csrc/` for sm_90a into
+`instancediffusion_tpu_torch/csrc/` for sm_90a, one nvcc process per source,
+all started together, links the objects into one library in
 `build/instancediffusion_tpu_torch/<hash of the sources>/` at the root of
 the checkout and loads it; later calls (and later processes, while the
 sources are unchanged) reuse that library. A missing nvcc or a failed build
@@ -27,7 +28,7 @@ BUILD_ROOT = PKG_DIR.parent / "build" / "instancediffusion_tpu_torch"
 LIB_NAME = "libidt_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 ]
 
 _LIB: ctypes.CDLL | None = None
@@ -35,8 +36,12 @@ BUILD_INFO: dict = {}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "idt_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F,
-                            _P],
+    "idt_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                            _F, _P],
+    "idt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P, _F, _P],
+    "idt_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _P, _F, _P],
     "idt_group_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                        _I, _P],
     "idt_layer_norm": [_P, _P, _P, _P, _LL, _I, _F, _I, _P],
@@ -75,25 +80,39 @@ def build() -> Path:
     if lib.exists():
         BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True)
         return lib
+    nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
+    procs = []
+    for cu in sorted(CSRC_DIR.glob("*.cu")):
+        obj = tmp_dir / f"{cu.stem}.o"
+        procs.append((cu.name, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(obj), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for name, _, proc in procs:
+        out, err = proc.communicate()
+        logs.append(f"== {name}\n{out}{err}")
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{err[-8000:]}")
+    tmp_lib = tmp_dir / LIB_NAME
+    if not failed:
+        objs = [str(obj) for _, obj, _ in procs]
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp_lib), *objs],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr[-8000:]}")
     seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}"
-        )
-    os.replace(tmp, lib)  # atomic: a process building at the same time sees all or nothing
-    BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False,
-                      log=proc.stderr)
+    log = "\n".join(logs)
+    (out_dir / "build.log").write_text(log)
+    if failed:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(tmp_lib, lib)  # atomic: a process building at the same time sees all or nothing
+    shutil.rmtree(tmp_dir, ignore_errors=True)
+    BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False, log=log)
     return lib
 
 

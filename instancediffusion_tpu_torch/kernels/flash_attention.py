@@ -20,6 +20,18 @@ kv_len are ignored); q covers the first N positions. Labels are per batch
 row and shared by every head. The kernel keeps score (i, j) iff
 open_i | open_j | (bits_i & bits_j) != 0 | i == j (`instance_labels` gives
 the encoding); the plain version is `sdpa_xla` under `labels_to_dense`.
+
+Training (`flash_attention_trainable`, `_labeled`): autograd Functions over
+the same (B,H,N,c) head views, unscaled q, no kv_len padding. Their forward
+is the same kernel's WITH_LSE instantiation (it replaces `_fwd_with_stats`)
+and also writes the fp32 (B,H,N) log-sum-exp, in base 2 of the scaled
+scores (`flash_attention_fwd_lse_plain` says how). Their backward computes
+delta = rowsum(dO * O) in fp32 here and launches the dq kernel and the
+dk/dv kernel of `csrc/flash_attention_bwd.cu` (they replace `_flash_bwd`),
+which write dq, dk and dv into (B,N,H,c) buffers; the labels get no
+gradient. The plain versions are `flash_attention_fwd_lse_plain` and
+`flash_attention_bwd_plain` (`_flash_bwd`'s formulas in fp32); on the CPU
+the trainable functions are autograd of `sdpa_xla`.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_xla
 
 _MAX_HEAD_DIM = 128
 GROUNDING_BIT = 1 << 30
+LOG2E = 1.4426950408889634
 
 
 def _true_kv(m: int, kv_len: int | None) -> int:
@@ -61,14 +74,11 @@ def _plain_mask(labels, n, kv_len):
     return labels_to_dense(*labels)[:, :, :n, :kv_len]
 
 
-def _launch(name, q, k, v, out, b, h, n, kv_len, c, strides, pre_scaled,
-            labels=None):
-    """strides: (batch, head, row) element strides of q, k, v, out."""
-    _build.require_cuda(name, q, k, v)
+def _check_operands(name, tensors, strides, b, h, c):
     if c % 8 or c > _MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {c} must be a multiple of 8 <= "
                          f"{_MAX_HEAD_DIM}")
-    for t in (q, k, v, out):
+    for t in tensors:
         if t.stride(-1) != 1 or t.data_ptr() % 16:
             raise ValueError(f"{name}: head dim must be contiguous and 16-byte "
                              "aligned")
@@ -76,21 +86,41 @@ def _launch(name, q, k, v, out, b, h, n, kv_len, c, strides, pre_scaled,
         raise ValueError(f"{name}: strides {strides} are not 16-byte multiples")
     if b * h > 65535:
         raise ValueError(f"{name}: B*H={b * h} exceeds the grid limit")
+
+
+def _label_args(name, labels, q):
+    """(bits pointer, open pointer, label stride, kernel name) for the C
+    launchers; null pointers for unlabeled attention."""
+    if labels is None:
+        return 0, 0, 0, name, None
+    bits, open_ = (t.contiguous() for t in labels)
+    if bits.device != q.device or open_.device != q.device:
+        raise ValueError(f"{name}: labels on {bits.device}, q on {q.device}")
+    return bits.data_ptr(), open_.data_ptr(), bits.shape[1], name + "_labeled", (bits, open_)
+
+
+def _head_strides(*tensors):
+    strides = []
+    for t in tensors:
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    return strides
+
+
+def _launch(name, q, k, v, out, b, h, n, kv_len, c, strides, pre_scaled,
+            labels=None, lse=None):
+    """strides: (batch, head, row) element strides of q, k, v, out. lse:
+    fp32 (B,H,N) buffer for the log-sum-exp, or None."""
+    _build.require_cuda(name, q, k, v)
+    _check_operands(name, (q, k, v, out), strides, b, h, c)
     scale = 1.0 if pre_scaled else 1.0 / math.sqrt(c)
     arr = (ctypes.c_longlong * len(strides))(*strides)
-    bits_ptr = open_ptr = label_stride = 0  # null pointers: unlabeled
-    if labels is not None:
-        bits, open_ = (t.contiguous() for t in labels)
-        if bits.device != q.device or open_.device != q.device:
-            raise ValueError(f"{name}: labels on {bits.device}, q on {q.device}")
-        bits_ptr, open_ptr, label_stride = bits.data_ptr(), open_.data_ptr(), bits.shape[1]
-        name += "_labeled"
+    bits_ptr, open_ptr, label_stride, name, _keep = _label_args(name, labels, q)
     lib = _build.lib()
     with torch.cuda.device(q.device):
         err = lib.idt_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bits_ptr,
-            open_ptr, label_stride, b, h, n, kv_len, c, arr, float(scale),
-            _build.stream_of(q),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            0 if lse is None else lse.data_ptr(), bits_ptr, open_ptr, label_stride,
+            b, h, n, kv_len, c, arr, float(scale), _build.stream_of(q),
         )
     _build.check(err, name)
     LAUNCHES[name] += 1
@@ -118,11 +148,8 @@ def flash_attention(q, k, v, labels=None, pre_scaled=False, kv_len=None):
                         pre_scaled=pre_scaled)
     out = torch.empty((b, n, h, c), dtype=q.dtype, device=q.device)
     out_v = out.permute(0, 2, 1, 3)
-    strides = []
-    for t in (q, k, v, out_v):
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
-    _launch("flash_attention", q, k, v, out_v, b, h, n, true_m, c, strides,
-            pre_scaled, labels)
+    _launch("flash_attention", q, k, v, out_v, b, h, n, true_m, c,
+            _head_strides(q, k, v, out_v), pre_scaled, labels)
     return out_v
 
 
@@ -151,6 +178,191 @@ def flash_attention_packed(q, k, v, num_heads=8, labels=None,
     _launch("flash_attention_packed", q, k, v, out, b, num_heads, n, true_m, c,
             strides, pre_scaled, labels)
     return out
+
+
+# ---------------------------------------------------------------------------
+# training: forward with log-sum-exp, backward kernels, autograd Functions
+# ---------------------------------------------------------------------------
+
+
+def _scores_log2(q, k, labels):
+    """fp32 (B,H,N,M) scores in the kernels' base-2 domain, s * scale *
+    log2(e), with masked pairs at -inf; and the keep-mask (or None)."""
+    c = q.shape[-1]
+    s = torch.einsum("bhnc,bhmc->bhnm", q.float(), k.float()) * (c ** -0.5 * LOG2E)
+    if labels is None:
+        return s, None
+    keep = _plain_mask(labels, q.shape[2], k.shape[2])
+    return s.masked_fill(~keep, -math.inf), keep
+
+
+def flash_attention_fwd_lse_plain(q, k, v, labels=None):
+    """(out, lse) of the training forward in fp32: out (B,H,N,c) rounded once
+    to q's dtype, lse (B,H,N) fp32 in base 2 of the scaled scores, lse_i =
+    log2 sum_j exp2(s_ij * scale * log2(e)) = (natural log-sum-exp) / ln 2;
+    -inf for a row with no kept key (whose output is 0)."""
+    s, _ = _scores_log2(q, k, labels)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp2(s - torch.where(m == -math.inf, 0.0, m))
+    l = e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhnm,bhmc->bhnc", e / l.clamp_min(1e-30), v.float())
+    lse = torch.where(m == -math.inf, -math.inf, m + torch.log2(l.clamp_min(1e-30)))
+    return out.to(q.dtype), lse[..., 0]
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, labels=None, kv_len=None):
+    """(dq, dk, dv) from the forward's residuals, `_flash_bwd`'s formulas in
+    fp32, each rounded once to its input's dtype. lse in base 2 as
+    `flash_attention_fwd_lse_plain` gives it; keys at or above kv_len are
+    masked and get zero gradients."""
+    m = k.shape[2]
+    kv = m if kv_len is None else int(kv_len)
+    c = q.shape[-1]
+    scale = c ** -0.5
+    s, keep = _scores_log2(q, k[:, :, :kv], labels)
+    p = torch.exp2(s - torch.where(lse == -math.inf, 0.0, lse)[..., None])
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
+    do, vf = dout.float(), v[:, :, :kv].float()
+    delta = (do * out.float()).sum(dim=-1, keepdim=True)
+    ds = p * (torch.einsum("bhnc,bhmc->bhnm", do, vf) - delta)
+    dq = torch.einsum("bhnm,bhmc->bhnc", ds, k[:, :, :kv].float()) * scale
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    dk[:, :, :kv] = torch.einsum("bhnm,bhnc->bhmc", ds, q.float()) * scale
+    dv[:, :, :kv] = torch.einsum("bhnm,bhnc->bhmc", p, do)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_fwd_lse(q, k, v, labels=None):
+    """K6: (out (B,H,N,c), lse (B,H,N) fp32) of q (B,H,N,c), k/v (B,H,M,c)
+    head views; unscaled q, lse in base 2. The output is a view of a
+    (B,N,H,c) buffer."""
+    _check_shapes("flash_attention_trainable", q, k, v, (0, 1, 3))
+    b, h, n, c = q.shape
+    m = k.shape[2]
+    if labels is not None:
+        _check_labels("flash_attention_trainable", labels, b, n, m)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_lse_plain(q, k, v, labels)
+    out = torch.empty((b, n, h, c), dtype=q.dtype, device=q.device)
+    out_v = out.permute(0, 2, 1, 3)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_trainable", q, k, v, out_v, b, h, n, m, c,
+            _head_strides(q, k, v, out_v), False, labels, lse)
+    return out_v, lse
+
+
+def _delta(out, dout):
+    """rowsum(dO * O) in fp32, (B,H,N) contiguous."""
+    return (dout.float() * out.float()).sum(dim=-1).contiguous()
+
+
+def _launch_bwd(which, q, k, v, dout, lse, delta, grads, labels):
+    """which: "dq" (grads = (dq,)) or "dkv" (grads = (dk, dv)); every
+    tensor a (B,H,*,c) view."""
+    name = f"flash_attention_bwd_{which}"
+    b, h, n, c = q.shape
+    m = k.shape[2]
+    _build.require_cuda(name, q, k, v, dout, *grads)
+    dq, dk, dv = (grads[0], None, None) if which == "dq" else (None, *grads)
+    views = (q, k, v, dout, dq if dq is not None else q, dk if dk is not None else k,
+             dv if dv is not None else v)
+    strides = _head_strides(*views)
+    _check_operands(name, views, strides, b, h, c)
+    arr = (ctypes.c_longlong * len(strides))(*strides)
+    bits_ptr, open_ptr, label_stride, name, _keep = _label_args(name, labels, q)
+    lib = _build.lib()
+    common = (bits_ptr, open_ptr, label_stride, b, h, n, m, c, arr, float(1.0 / math.sqrt(c)),
+              _build.stream_of(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    with torch.cuda.device(q.device):
+        if which == "dq":
+            err = lib.idt_flash_bwd_dq(*ptrs, dq.data_ptr(), *common)
+        else:
+            err = lib.idt_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *common)
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+
+
+def _grad_buffer(t):
+    """A (B,H,L,c) view of a fresh (B,L,H,c) buffer shaped like t."""
+    b, h, length, c = t.shape
+    return torch.empty((b, length, h, c), dtype=t.dtype, device=t.device).permute(0, 2, 1, 3)
+
+
+def _kernel_dout(dout):
+    """dO as the kernels take it: head dim contiguous, 16-byte rows."""
+    ok = (dout.stride(-1) == 1 and dout.data_ptr() % 16 == 0
+          and all(s % 8 == 0 for s in dout.stride()[:3]))
+    return dout if ok else dout.contiguous()
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, labels=None):
+    """dq kernel (replaces `_bwd_dq_kernel`); the plain version's dq on the
+    CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, labels)[0]
+    dout = _kernel_dout(dout)
+    dq = _grad_buffer(q)
+    _launch_bwd("dq", q, k, v, dout, lse, _delta(out, dout), (dq,), labels)
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, out, lse, dout, labels=None):
+    """dk/dv kernel (replaces `_bwd_dkv_kernel`); the plain version's dk, dv
+    on the CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, labels)[1:]
+    dout = _kernel_dout(dout)
+    dk, dv = _grad_buffer(k), _grad_buffer(v)
+    _launch_bwd("dkv", q, k, v, dout, lse, _delta(out, dout), (dk, dv), labels)
+    return dk, dv
+
+
+class _FlashTrainFn(torch.autograd.Function):
+    """Forward K6 on CUDA head views; backward the dq and dk/dv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bits, open_):
+        labels = None if bits is None else (bits, open_)
+        out, lse = flash_attention_fwd_lse(q, k, v, labels)
+        ctx.save_for_backward(q, k, v, out, lse, bits, open_)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, bits, open_ = ctx.saved_tensors
+        labels = None if bits is None else (bits, open_)
+        dout = _kernel_dout(dout)
+        delta = _delta(out, dout)
+        dq, dk, dv = _grad_buffer(q), _grad_buffer(k), _grad_buffer(v)
+        _launch_bwd("dq", q, k, v, dout, lse, delta, (dq,), labels)
+        _launch_bwd("dkv", q, k, v, dout, lse, delta, (dk, dv), labels)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_trainable(q, k, v):
+    """Differentiable attention over (B,H,N,c) x (B,H,M,c) head views with
+    unscaled q: kernels K6 / dq / dk-dv on CUDA, autograd of `sdpa_xla` on
+    the CPU. Returns a (B,H,N,c) view of a (B,N,H,c) tensor."""
+    _check_shapes("flash_attention_trainable", q, k, v, (0, 1, 3))
+    if q.device.type == "cpu":
+        return sdpa_xla(q, k, v)
+    return _FlashTrainFn.apply(q, k, v, None, None)
+
+
+def flash_attention_trainable_labeled(q, k, v, bits, open_):
+    """`flash_attention_trainable` under the instance-label predicate; the
+    labels (int32 (B, L), L >= max(N, M)) get no gradient."""
+    _check_shapes("flash_attention_trainable", q, k, v, (0, 1, 3))
+    b, _, n, _ = q.shape
+    m = k.shape[2]
+    _check_labels("flash_attention_trainable_labeled", (bits, open_), b, n, m)
+    if q.device.type == "cpu":
+        return sdpa_xla(q, k, v, mask=_plain_mask((bits, open_), n, m))
+    return _FlashTrainFn.apply(q, k, v, bits, open_)
 
 
 def instance_labels(att_masks, n_objs: int, seg_tokens: int = 64):

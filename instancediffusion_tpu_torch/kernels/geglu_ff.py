@@ -18,7 +18,9 @@ Pallas kernel's tanh-GELU was a Mosaic limitation;
 this kernel uses erf like the model
 (`instancediffusion_tpu/models/unet.py::_apply_ff_geglu`).
 
-Weights are in torch Linear layout: w1 (2*inner, C), w2 (C, inner).
+Weights are in torch Linear layout: w1 (2*inner, C), w2 (C, inner). Under
+autograd the kernel's gradient is autograd of `ff_geglu_plain`, recomputed
+from the saved inputs (`_vjp.py`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from instancediffusion_tpu_torch.kernels import LAUNCHES
 from instancediffusion_tpu_torch.kernels import _build
+from instancediffusion_tpu_torch.kernels._vjp import plain_vjp
 
 
 def ff_geglu_plain(x, w1, b1, w2, b2):
@@ -41,6 +44,10 @@ def fused_ff_geglu(x, w1, b1, w2, b2):
     """x (..., C) -> (..., C)."""
     if x.device.type == "cpu":
         return ff_geglu_plain(x, w1, b1, w2, b2)
+    return plain_vjp(_ff_geglu_kernel, ff_geglu_plain, x, w1, b1, w2, b2)
+
+
+def _ff_geglu_kernel(x, w1, b1, w2, b2):
     _build.require_cuda("fused_ff_geglu", x, w1, w2)
     c = x.shape[-1]
     two_inner = w1.shape[0]

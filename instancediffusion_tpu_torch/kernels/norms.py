@@ -12,16 +12,20 @@ block per sample would use 8-16 of the card's 132 SMs.
 
 The plain versions compute in fp32 and round once, like the kernels, so a
 kernel-vs-plain comparison measures the kernel and not two rounding choices.
+Under autograd the kernels' gradient is autograd of the plain version,
+recomputed from the saved inputs (`_vjp.py`), as in the JAX package.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from instancediffusion_tpu_torch.kernels import LAUNCHES
 from instancediffusion_tpu_torch.kernels import _build
+from instancediffusion_tpu_torch.kernels._vjp import plain_vjp
 
 _TARGET_BLOCKS = 4 * 132  # a few waves of blocks on the H100's 132 SMs
 _MAX_GROUPS = 64
@@ -67,6 +71,12 @@ def fused_group_norm(x, scale, bias, num_groups=32, eps=1e-5, act="none"):
     _check_affine("fused_group_norm", x, scale, bias)
     if x.device.type == "cpu":
         return group_norm_plain(x, scale, bias, num_groups, eps, act)
+    kw = dict(num_groups=num_groups, eps=eps, act=act)
+    return plain_vjp(functools.partial(_group_norm_kernel, **kw),
+                     functools.partial(group_norm_plain, **kw), x, scale, bias)
+
+
+def _group_norm_kernel(x, scale, bias, num_groups, eps, act):
     b, n, c = x.shape
     _build.require_cuda("fused_group_norm", x)
     if c % num_groups or c % 2 or num_groups > _MAX_GROUPS:
@@ -105,6 +115,11 @@ def fused_layer_norm(x, scale, bias, eps=1e-5):
     _check_affine("fused_layer_norm", x, scale, bias)
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, eps)
+    return plain_vjp(functools.partial(_layer_norm_kernel, eps=eps),
+                     functools.partial(layer_norm_plain, eps=eps), x, scale, bias)
+
+
+def _layer_norm_kernel(x, scale, bias, eps):
     _build.require_cuda("fused_layer_norm", x,
                              dtypes=(torch.bfloat16, torch.float32))
     c = x.shape[-1]

@@ -10,6 +10,11 @@ The gate scale is a Python float per step: at gate 0 the fuser does not
 run and the stock-SD first conv replaces the grounded one. `fuser_mask`
 (instance-masked attention, `use_masked_att`) reaches the fuser at ds1 only,
 as (bits, open) labels for the flash kernel or a dense keep-mask.
+
+Training (`apply_unet(train=True)`) takes the differentiable flash kernels
+with unscaled q; `remat=True` recomputes each res block and spatial
+transformer in the backward (torch.utils.checkpoint), as the JAX package's
+jax.checkpoint does.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from instancediffusion_tpu_torch.config import UNetConfig
 from instancediffusion_tpu_torch.kernels.geglu_ff import ff_geglu_plain, fused_ff_geglu
@@ -109,8 +115,9 @@ def _apply_mha(p: MHA, x, kv, num_heads, impl, kv_len=None, mask=None, labels=No
     c = p.to_q.weight.shape[0] // num_heads
     pre_scaled = impl == "kernel"
     if pre_scaled:
-        # fold 1/sqrt(c) into the bias-free to_q weight: the kernel then
-        # skips a scaling pass over the scores
+        # inference only: fold 1/sqrt(c) into the bias-free to_q weight, so
+        # the kernel skips a scaling pass over the scores (the training
+        # kernels take unscaled q and scale dq themselves)
         q = torch.nn.functional.linear(x, (p.to_q.weight * (c ** -0.5)).to(x.dtype))
     else:
         q = nn.linear(p.to_q, x)
@@ -346,14 +353,21 @@ def _fourier_filter_fft(x, threshold, scale):
 
 def apply_unet(p: UNet, cfg: UNetConfig, x, timesteps, context, grounding=None,
                gate_scale: float = 1.0, drops=None, precomputed_objs=None,
-               fuser_mask=None):
+               fuser_mask=None, train: bool = False, remat: bool = False):
     """eps-prediction forward. x (B,H,W,4) NHWC, timesteps (B,), context
     (B,77,D). Grounding tokens come from `precomputed_objs` (B,G,D) or are
-    computed from `grounding` (null grounding when None). Long attention
-    goes to the flash kernel unless plain_kernels() is active. fuser_mask:
-    the ds1 fusers' instance mask, (bits, open) int32 (B,N64+G) labels or a
-    dense (B,1,N64+G,N64+G) bool keep-mask."""
-    attn_impl = "kernel" if cfg.efficient_attention and nn.kernels_enabled() else "plain"
+    computed from `grounding` (null grounding when None) under `drops`.
+    Long attention goes to the flash kernel unless plain_kernels() is
+    active; `train=True` takes its differentiable version. fuser_mask: the
+    ds1 fusers' instance mask, (bits, open) int32 (B,N64+G) labels or a
+    dense (B,1,N64+G,N64+G) bool keep-mask. remat: recompute every res
+    block and spatial transformer in the backward (gradient
+    checkpointing), with the gate scale static and the fuser mask passed
+    as an argument."""
+    use_kernels = nn.kernels_enabled()
+    attn_impl = "plain"
+    if cfg.efficient_attention and use_kernels:
+        attn_impl = "kernel_train" if train else "kernel"
     gcfg = cfg.grounding_tokenizer
     gate_scale = float(gate_scale)
     if precomputed_objs is not None:
@@ -370,15 +384,29 @@ def apply_unet(p: UNet, cfg: UNetConfig, x, timesteps, context, grounding=None,
     emb = nn.linear(p.time_embed.l2, nn.silu(nn.linear(p.time_embed.l1, t_emb)))
     input_plan, middle_plan, output_plan = build_plan(cfg)
 
+    def block(fn, *args):
+        """fn(*args), recomputed in the backward under remat with the
+        kernels switched as they are now."""
+        if not remat:
+            return fn(*args)
+
+        def run(*a):
+            with nn.kernels_set(use_kernels):
+                return fn(*a)
+
+        return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
     def run_layer(spec: LayerSpec, m, h):
         if spec.kind == "conv_in":
             conv = p.first_conv_sd if gate_scale == 0.0 else m.conv
             return nn.conv2d(conv, h, padding=1)
         if spec.kind == "res":
-            return m(h, emb)
+            return block(m, h, emb)
         if spec.kind == "attn":
             mask = fuser_mask if spec.ds == 1 else None
-            return m(h, context, objs, cfg.num_heads, gate_scale, attn_impl, mask)
+            return block(lambda h, ctx, ob, mask: m(h, ctx, ob, cfg.num_heads, gate_scale,
+                                                    attn_impl, mask),
+                         h, context, objs, mask)
         if spec.kind == "down":
             return nn.conv2d(m.conv, h, stride=2, padding=1)
         if spec.kind == "up":

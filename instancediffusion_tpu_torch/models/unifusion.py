@@ -20,8 +20,9 @@ from instancediffusion_tpu_torch.ops.schedules import fourier_embed
 
 @dataclass
 class ModalityDrops:
-    """Which grounding modalities are dropped for this forward (inference:
-    Python bools)."""
+    """Which grounding modalities are dropped for this forward: Python
+    bools, fixed at inference and drawn on the host once per training
+    step."""
 
     drop_point: bool = False
     drop_box: bool = False
@@ -45,6 +46,27 @@ class ModalityDrops:
                        and self.drop_polygons and self.drop_segs)
         return ModalityDrops(self.drop_point, self.drop_box and not all_dropped,
                              self.drop_scribble, self.drop_polygons, self.drop_segs)
+
+
+def train_modality_drops(u) -> ModalityDrops:
+    """Per-batch training dropout from six uniforms in [0, 1): a 10 % drop
+    per modality (u[0] box, u[1] point, u[2] scribble, u[3] polygons, segs
+    with polygons), then the reference's hierarchy fix-ups: kept masks keep
+    box and point, a kept box keeps point; 10 % point only (u[4]); 10 %
+    seg only (u[5], if segs are kept): box, point, polygons and segs kept,
+    scribbles dropped."""
+    drop_box, drop_point, drop_scribble, drop_polygons = (float(x) < 0.1 for x in u[:4])
+    drop_segs = drop_polygons
+    keep_masks = not drop_polygons
+    drop_box = drop_box and not keep_masks
+    drop_point = drop_point and not (not drop_box or keep_masks)
+    if float(u[4]) < 0.1:  # keep point only
+        drop_point = False
+        drop_box = drop_scribble = drop_polygons = drop_segs = True
+    if float(u[5]) < 0.1 and not drop_segs:  # keep seg only
+        drop_point = drop_box = drop_polygons = drop_segs = False
+        drop_scribble = True
+    return ModalityDrops(drop_point, drop_box, drop_scribble, drop_polygons, drop_segs)
 
 
 def null_grounding(batch: int, max_objs: int, cfg: UniFusionConfig,

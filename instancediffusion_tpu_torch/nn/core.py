@@ -112,15 +112,20 @@ _kernels_enabled = [True]
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Route norms, the GEGLU FF and flash attention through their plain
-    PyTorch versions, on any device. For tests and the on-card reference
-    pass; the main path never enters it."""
-    _kernels_enabled.append(False)
+def kernels_set(enabled: bool):
+    """Within the block, the kernels are on (True) or off (False)."""
+    _kernels_enabled.append(enabled)
     try:
         yield
     finally:
         _kernels_enabled.pop()
+
+
+def plain_kernels():
+    """Route norms, the GEGLU FF and flash attention through their plain
+    PyTorch versions, on any device. For tests and the on-card reference
+    pass; the main path never enters it."""
+    return kernels_set(False)
 
 
 def kernels_enabled() -> bool:

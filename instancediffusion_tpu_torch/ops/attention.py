@@ -6,7 +6,9 @@ attention kernel. `multi_head_attention` keeps the JAX routing: long
 sequences (`big`) and instance labels go to the flash kernel, packed when
 the head dim is at least 64 and split-heads below; everything else
 (cross-attention over 77 tokens, ds4/ds8, a dense mask) stays plain, and a
-plain call with labels expands them with `labels_to_dense`.
+plain call with labels expands them with `labels_to_dense`. `impl=
+"kernel_train"` (JAX's "pallas_train") routes the same long calls to the
+differentiable kernels, split-heads at every head dim, with unscaled q.
 """
 
 from __future__ import annotations
@@ -55,10 +57,12 @@ def labels_to_dense(bits, open_):
 def multi_head_attention(q, k, v, num_heads: int, mask=None, labels=None,
                          impl="plain", pre_scaled=False, kv_len=None):
     """(B,N,H*c) x (B,M,H*c) -> (B,N,H*c). impl: "kernel" routes long
-    sequences and labeled calls to the flash kernel; "plain" never does.
-    mask: dense (B,1,N,M) bool keep-mask (always plain). labels: (bits,
-    open) int32 (B,L) over k-sequence positions, L >= M; q covers the first
-    N. kv_len: true kv length when k/v are padded past it."""
+    sequences and labeled calls to the flash kernel; "kernel_train" routes
+    them to the differentiable flash kernels (unscaled q, no dense mask, no
+    kv_len); "plain" never does. mask: dense (B,1,N,M) bool keep-mask
+    (always plain). labels: (bits, open) int32 (B,L) over k-sequence
+    positions, L >= M; q covers the first N. kv_len: true kv length when
+    k/v are padded past it."""
     n, m = q.shape[1], k.shape[1]
     # the flash kernel pays off on long sequences only (JAX routing);
     # labels always take it
@@ -79,6 +83,19 @@ def multi_head_attention(q, k, v, num_heads: int, mask=None, labels=None,
 
         out = flash_attention(qh, kh, vh, labels=labels, pre_scaled=pre_scaled,
                               kv_len=kv_len)
+    elif impl == "kernel_train" and big:
+        # the backward computes dq = scale * ds k from unscaled q
+        if pre_scaled or mask is not None or kv_len is not None:
+            raise ValueError("kernel_train takes unscaled q, no dense mask and "
+                             "no kv_len padding")
+        from instancediffusion_tpu_torch.kernels.flash_attention import (
+            flash_attention_trainable, flash_attention_trainable_labeled,
+        )
+
+        if labels is not None:
+            out = flash_attention_trainable_labeled(qh, kh, vh, *labels)
+        else:
+            out = flash_attention_trainable(qh, kh, vh)
     else:
         m_true = m if kv_len is None else kv_len
         kh, vh = kh[:, :, :m_true], vh[:, :, :m_true]

@@ -61,10 +61,13 @@ def make_ddim_sampling_parameters(alphacums, ddim_timesteps, eta):
 
 @dataclass(frozen=True)
 class DiffusionSchedule:
-    """The forward-process buffers the samplers read, float32 (T,)."""
+    """The forward-process buffers the samplers and the training step read,
+    float32 (T,)."""
 
     betas: np.ndarray
     alphas_cumprod: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
 
     @property
     def num_timesteps(self) -> int:
@@ -77,8 +80,21 @@ def make_diffusion_schedule(beta_schedule="linear", timesteps=1000,
     betas = make_beta_schedule(beta_schedule, timesteps, linear_start,
                                linear_end, cosine_s)
     alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
-    return DiffusionSchedule(betas=betas.astype(np.float32),
-                             alphas_cumprod=alphas_cumprod.astype(np.float32))
+    f32 = lambda x: np.asarray(x, dtype=np.float32)
+    return DiffusionSchedule(
+        betas=f32(betas), alphas_cumprod=f32(alphas_cumprod),
+        sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
+        sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
+    )
+
+
+def q_sample(sqrt_ac: torch.Tensor, sqrt_1mac: torch.Tensor, x_start: torch.Tensor,
+             t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Forward noising q(x_t | x_0): sqrt_ac[t] * x_start + sqrt_1mac[t] *
+    noise, with the (T,) buffers as tensors on x_start's device and t (B,)
+    integer timesteps."""
+    shape = (-1,) + (1,) * (x_start.dim() - 1)
+    return sqrt_ac[t].reshape(shape) * x_start + sqrt_1mac[t].reshape(shape) * noise
 
 
 def alpha_generator(length: int, type: list[float] | None = None) -> np.ndarray:

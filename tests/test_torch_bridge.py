@@ -70,7 +70,7 @@ def dense_params(cfg, seed=0):
     }
 
 
-_SECTIONS = ("diffusion", "model", "autoencoder", "text_encoder", "sampler")
+_SECTIONS = ("diffusion", "model", "autoencoder", "text_encoder", "sampler", "data", "train")
 
 
 def port_config(cfg):
@@ -176,8 +176,10 @@ def test_port_config_matches_jax(preset):
 
 
 def test_port_config_rejects_unknown_keys():
-    with pytest.raises(KeyError, match="train"):
-        pconfig.load_config(overrides={"train": {"batch_size": 2}})
+    with pytest.raises(KeyError, match="refiner"):
+        pconfig.load_config(overrides={"refiner": {"steps": 2}})
+    with pytest.raises(KeyError, match="batch"):
+        pconfig.load_config(overrides={"train": {"batch": 2}})
     with pytest.raises(KeyError, match="max_boxes"):
         pconfig.load_config(overrides={"model": {"max_boxes": 2}})
 

@@ -179,3 +179,166 @@ def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="multiples of 64"):
         ff.fused_ff_geglu(x, w1, torch.zeros(768), w2, torch.zeros(96))
     assert sum(kernels.LAUNCHES.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# training kernels and gradients
+# ---------------------------------------------------------------------------
+# bf16 gradients: ds and p are rounded to bf16 before their products, so
+# max |kernel - plain| <= 2e-2 * max |plain|; lse is fp32 (1e-3 absolute,
+# in base 2).
+GRAD_REL_TOL = 2e-2
+LSE_ATOL = 1e-3
+
+
+def _train_case(dev, n, m, c, labels=None, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (_heads(_rnd(g, dev, 2, s, 2 * c), 2) for s in (n, m, m, n))
+    return q, k, v, do, labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["self", "ragged", "labeled", "labeled_late"])
+def test_training_kernels_match_plain_on_card(dev, case):
+    """K6 (out, lse), dq and dk/dv against their plain versions, on
+    strided head views, unlabeled, ragged (N, M not tile multiples) and
+    labeled (box labels; late labels whose first key tiles are masked)."""
+    n, m, c, labels = {
+        "self": (256, 256, 40, None),
+        "ragged": (200, 77 + 64, 80, None),
+        "labeled": (1024, 1208, 40, _box_labels(dev, 32)),
+        "labeled_late": (384, 400, 40, _late_labels(dev, 400, 256)),
+    }[case]
+    q, k, v, do, labels = _train_case(dev, n, m, c, labels)
+    kernels.reset_launch_counts()
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, labels)
+    dq = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, labels)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, do, labels)
+    torch.cuda.synchronize()
+    sfx = "" if labels is None else "_labeled"
+    assert kernels.LAUNCHES == {f"flash_attention_trainable{sfx}": 1,
+                                f"flash_attention_bwd_dq{sfx}": 1,
+                                f"flash_attention_bwd_dkv{sfx}": 1}
+    pout, plse = fa.flash_attention_fwd_lse_plain(q, k, v, labels)
+    assert (out.float() - pout.float()).abs().max() <= REL_TOL * pout.float().abs().max()
+    assert (lse - plse).abs().max() <= LSE_ATOL
+    for got, want in zip((dq, dk, dv), fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                                     labels)):
+        assert got.shape == want.shape and torch.isfinite(got.float()).all()
+        assert (got.float() - want.float()).abs().max() <= GRAD_REL_TOL * want.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("labeled", [False, True])
+def test_trainable_attention_autograd_on_card(dev, labeled):
+    """flash_attention_trainable(_labeled) under autograd: the kernels'
+    gradients against autograd of the plain attention (sdpa_xla)."""
+    labels = _box_labels(dev, 32) if labeled else None
+    q, k, v, do, _ = _train_case(dev, 1024, 1208, 40, seed=1)
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    refs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    if labeled:
+        out = fa.flash_attention_trainable_labeled(*ins, *labels)
+        ref = sdpa_xla(*refs, mask=labels_to_dense(*labels)[:, :, :1024, :1208])
+    else:
+        out = fa.flash_attention_trainable(*ins)
+        ref = sdpa_xla(*refs)
+    out.backward(do)
+    ref.backward(do)
+    for a, b in zip(ins, refs):
+        assert (a.grad.float() - b.grad.float()).abs().max() <= GRAD_REL_TOL * b.grad.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["group_norm", "layer_norm", "ff_geglu"])
+def test_norm_and_geglu_autograd_on_card(dev, kind):
+    """K3-K5 under autograd: the kernel forward and the recomputed plain
+    backward against autograd of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = _rnd(g, dev, 2, 256, 320, std=2.0)
+    if kind == "ff_geglu":
+        args = [x, _rnd(g, dev, 2560, 320, std=320 ** -0.5),
+                torch.randn(2560, generator=g, device=dev) * 0.1,
+                _rnd(g, dev, 320, 1280, std=1280 ** -0.5),
+                torch.randn(320, generator=g, device=dev) * 0.1]
+        kern, plain = ff.fused_ff_geglu, ff.ff_geglu_plain
+    else:
+        args = [x, torch.randn(320, generator=g, device=dev), torch.randn(320, generator=g,
+                                                                           device=dev)]
+        kern, plain = ((lambda *a: norms.fused_group_norm(*a, 32, 1e-5, "silu"),
+                        lambda *a: norms.group_norm_plain(*a, 32, 1e-5, "silu"))
+                       if kind == "group_norm" else (norms.fused_layer_norm, norms.layer_norm_plain))
+    dy = _rnd(g, dev, 2, 256, 320)
+    a = [t.detach().requires_grad_(True) for t in args]
+    b = [t.detach().requires_grad_(True) for t in args]
+    kernels.reset_launch_counts()
+    kern(*a).backward(dy)
+    assert sum(kernels.LAUNCHES.values()) == 1
+    plain(*b).backward(dy)
+    for ta, tb in zip(a, b):
+        assert torch.isfinite(ta.grad.float()).all()
+        assert (ta.grad.float() - tb.grad.float()).abs().max() <= REL_TOL * tb.grad.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_tiny_train_step_on_card(dev, masked):
+    """One bf16 train step at a small config whose attention is long enough
+    for the kernels (1024 visual tokens, head dim 8): the trainable
+    parameters get finite gradients, every trainable group a non-zero
+    one, frozen parameters none; the step goes through the kernels."""
+    import numpy as np
+
+    from instancediffusion_tpu_torch.config import load_config
+    from instancediffusion_tpu_torch.ops.schedules import make_diffusion_schedule
+    from instancediffusion_tpu_torch.train import optimizer as popt
+    from instancediffusion_tpu_torch.train import train_step as pts
+
+    gcfg = dict(in_dim=64, out_dim=64, mid_dim=64, fourier_freqs=4, fourier_freqs_polygons=4,
+                n_scribble_points=4, n_polygon_points=8, seg_channels=4, seg_resize_input=64,
+                convnext_depths=(1, 1), convnext_dims=(32, 64), convnext_feature_dim=4096)
+    cfg = load_config(overrides=dict(
+        model=dict(image_size=32, model_channels=64, num_heads=8, context_dim=64, max_objs=4,
+                   grounding_tokenizer=gcfg, channel_mult=(1,), num_res_blocks=1,
+                   attention_resolutions=(1,), use_masked_att=masked),
+        autoencoder=dict(ch=32, ch_mult=(1, 2), resolution=64),
+        text_encoder=dict(vocab_size=512, hidden_size=64, intermediate_size=128,
+                          num_hidden_layers=1, num_attention_heads=4)))
+    state = pts.init_train_state(cfg, seed=0, device=dev)
+    for name, p in state.unet.named_parameters():  # no zero-initialised gate
+        if any(k in name for k in ("alpha", "scaleu", "out.conv", "out_conv", "proj_out")):
+            p.data.normal_(0, 0.5, generator=torch.Generator(device=dev).manual_seed(len(name)))
+    state.optimizer, state.scheduler = popt.make_optimizer(state.unet, 1e-4, warmup_steps=0)
+    state = pts.cast_frozen_bf16(state)
+    r = np.random.default_rng(0)
+    b, n = 2, 4
+    batch = {"image": r.standard_normal((b, 64, 64, 3)), "boxes": np.concatenate(
+        [r.uniform(0, .4, (b, n, 2)), r.uniform(.5, 1, (b, n, 2))], -1),
+        "masks": np.ones((b, n)), "text_embeddings": r.standard_normal((b, n, 64)),
+        "scribbles": r.uniform(0, 1, (b, n, 8)), "polygons": r.uniform(0, 1, (b, n, 16)),
+        "segs": (r.uniform(size=(b, n, 64, 64)) > 0.5), "points": r.uniform(0, 1, (b, n, 2))}
+    batch = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev) for k, v in batch.items()}
+    batch["caption_ids"] = torch.as_tensor(r.integers(0, 512, (b, 77)), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    draws = pts.sample_draws(gen, b, pts.latent_shape(cfg, 64))
+    draws.drop_all = False
+    kernels.reset_launch_counts()
+    loss = pts.make_loss_fn(cfg, make_diffusion_schedule())(state, batch, draws)
+    loss.backward()
+    torch.cuda.synchronize()
+    sfx = "_labeled" if masked else ""
+    for name in (f"flash_attention_trainable{sfx}", f"flash_attention_bwd_dq{sfx}",
+                 f"flash_attention_bwd_dkv{sfx}", "fused_group_norm", "fused_layer_norm",
+                 "fused_ff_geglu"):
+        assert kernels.LAUNCHES[name] > 0, (name, dict(kernels.LAUNCHES))
+    assert torch.isfinite(loss)
+    groups = {}
+    for name, p in state.unet.named_parameters():
+        if not popt.is_trainable(name):
+            assert p.grad is None, name
+            continue
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        key = "fuser" if "fuser" in name else name.split(".")[0]
+        groups[key] = groups.get(key, 0.0) + p.grad.float().pow(2).sum().item()
+    assert set(groups) == {"fuser", "position_net", "scaleu"}
+    assert all(v > 0 for v in groups.values()), groups

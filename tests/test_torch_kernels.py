@@ -10,6 +10,8 @@ jax_default_matmul_precision="highest" (tests/conftest.py).
 The kernels themselves are checked on the card in tests/test_torch_cuda.py.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -268,3 +270,202 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+# ---------------------------------------------------------------------------
+# training: trainable attention, its backward, and the norm / GEGLU VJPs
+# ---------------------------------------------------------------------------
+# fp32 on both sides: differences are summation order only (1e-4). The
+# Pallas GEGLU kernel and its VJP use the tanh GELU, the port (like the JAX
+# model's own CPU path) the exact erf one: their gradients differ by the
+# approximation, up to ~2e-3 of the largest gradient entry.
+GELU_TANH_REL = 5e-3
+
+
+def _grad_close(port, ref, rel=ATOL):
+    """max |port - ref| <= rel * max |ref| (and within atol for all-zero refs)."""
+    ref = np.asarray(ref)
+    err = np.abs(port.detach().numpy() - ref).max()
+    assert err <= rel * max(np.abs(ref).max(), 1.0), (err, np.abs(ref).max())
+
+
+def _attn_case(rng, n, m, c, pattern):
+    q, k, v, w = (_rand(rng, 1, 2, s, c) for s in (n, m, m, n))
+    labels = None if pattern is None else _labels(rng, m, pattern)
+    if labels is not None:  # batch 1: sample 0's labels
+        labels = tuple(a[:1] for a in labels)
+    return q, k, v, w, labels
+
+
+@pytest.mark.parametrize("n,m,c,pattern", [
+    (128, 128, 40, None),
+    (160, 77, 40, None),       # ragged q and kv
+    (128, 160, 40, "random"),
+    (384, 400, 40, "late"),    # rows whose first key blocks are fully masked
+])
+def test_trainable_attention_grads_match_pallas(n, m, c, pattern):
+    """Loss sum(out * w) and dq/dk/dv of the port's trainable attention (the
+    CPU route: autograd of sdpa_xla) against the Pallas custom VJP
+    (flash_attention_trainable(_labeled), interpret mode)."""
+    import jax
+
+    rng = np.random.default_rng(20)
+    q, k, v, w, labels = _attn_case(rng, n, m, c, pattern)
+
+    def jloss(q, k, v):
+        if labels is None:
+            out = jfa.flash_attention_trainable(q, k, v, 64, 64, True)
+        else:
+            out = jfa.flash_attention_trainable_labeled(
+                q, k, v, jnp.asarray(labels[0]), jnp.asarray(labels[1]), 64, 64, True)
+        return jnp.sum(out * jnp.asarray(w))
+
+    jl, jg = jax.value_and_grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(t) for t in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_(True) for t in (q, k, v))
+    if labels is None:
+        out = fa.flash_attention_trainable(tq, tk, tv)
+    else:
+        out = fa.flash_attention_trainable_labeled(tq, tk, tv, *map(torch.from_numpy, labels))
+    loss = (out * torch.from_numpy(w)).sum()
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
+    for t, ref in zip((tq, tk, tv), jg):
+        _grad_close(t.grad, ref)
+
+
+@pytest.mark.parametrize("n,m,pattern", [(128, 128, None), (160, 77, None),
+                                         (384, 400, "late")])
+def test_flash_bwd_plain_matches_pallas_on_its_residuals(n, m, pattern):
+    """flash_attention_bwd_plain on the Pallas forward's own residuals (out
+    and lse, the latter converted from base e to the port's base 2) against
+    _flash_bwd; and the port's forward-with-lse against _fwd_with_stats."""
+    rng = np.random.default_rng(21)
+    q, k, v, g, labels = _attn_case(rng, n, m, 40, pattern)
+    jlabels = None if labels is None else tuple(jnp.asarray(a) for a in labels)
+    out, res = jfa._fwd_with_stats(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jlabels,
+                                   64, 64, True)
+    jdq, jdk, jdv = jfa._flash_bwd(res, jnp.asarray(g), 64, 64, True)
+    lse_e = np.asarray(res[4]).reshape(1, 2, -1)[:, :, :n]
+    t = torch.from_numpy
+    tlabels = None if labels is None else tuple(map(t, labels))
+    dq, dk, dv = fa.flash_attention_bwd_plain(t(q), t(k), t(v), t(np.array(out)),
+                                              t(lse_e / math.log(2.0)), t(g), tlabels)
+    for port, ref in ((dq, jdq), (dk, jdk), (dv, jdv)):
+        _grad_close(port, ref)
+    pout, plse = fa.flash_attention_fwd_lse_plain(t(q), t(k), t(v), tlabels)
+    _close(pout, out)
+    _close(plse * math.log(2.0), lse_e)
+    # the CPU wrappers of the kernels return the plain versions
+    _close(fa.flash_attention_bwd_dq(t(q), t(k), t(v), pout, plse, t(g), tlabels), jdq)
+    for port, ref in zip(fa.flash_attention_bwd_dkv(t(q), t(k), t(v), pout, plse, t(g),
+                                                    tlabels), (jdk, jdv)):
+        _grad_close(port, ref)
+
+
+def test_flash_bwd_plain_row_without_kept_key_is_zero():
+    """A labeled row that keeps no key (possible only for rows at or past
+    kv_len) has lse = -inf and output 0, and gives zero, finite gradients."""
+    rng = np.random.default_rng(22)
+    q, k, v, g = (torch.from_numpy(_rand(rng, 1, 1, s, 8)) for s in (4, 2, 2, 4))
+    bits = torch.tensor([[1, 1, 2, 4]], dtype=torch.int32)  # rows 2, 3: no kept key
+    labels = (bits, torch.zeros_like(bits))
+    out, lse = fa.flash_attention_fwd_lse_plain(q, k, v, labels)
+    assert torch.isinf(lse[0, 0, 2:]).all() and (out[0, 0, 2:] == 0).all()
+    dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, labels)
+    assert all(torch.isfinite(d).all() for d in (dq, dk, dv))
+    assert (dq[0, 0, 2:] == 0).all()
+
+
+def _vjp_cases():
+    return [("group_norm", (64, 320), dict(num_groups=32, eps=1e-5, act="silu")),
+            ("group_norm", (16, 512), dict(num_groups=32, eps=1e-6, act="none")),
+            ("layer_norm", (77, 768), dict(eps=1e-5)),
+            ("layer_norm", (64, 96), dict(eps=1e-6))]
+
+
+@pytest.mark.parametrize("kind,shape,kw", _vjp_cases())
+def test_norm_vjp_matches_pallas_custom_vjp(kind, shape, kw):
+    """The port's norm gradients (the CPU wrapper's autograd, and the
+    PlainVJP Function that the CUDA route wraps the kernel in, here around
+    the plain version) against jax.vjp of the Pallas kernels' custom VJP."""
+    import functools
+
+    import jax
+
+    from instancediffusion_tpu_torch.kernels._vjp import PlainVJP
+
+    rng = np.random.default_rng(23)
+    x = _rand(rng, 2, *shape, scale=2.0, shift=0.3)
+    sc, bi = _rand(rng, shape[1]), _rand(rng, shape[1])
+    g = _rand(rng, 2, *shape)
+    if kind == "group_norm":
+        jfn = lambda x, s, b: jnorms.fused_group_norm(x, s, b, kw["num_groups"], kw["eps"],
+                                                      kw["act"], True)
+        wrapper, plain = norms.fused_group_norm, norms.group_norm_plain
+    else:
+        jfn = lambda x, s, b: jnorms.fused_layer_norm(x, s, b, kw["eps"], True)
+        wrapper, plain = norms.fused_layer_norm, norms.layer_norm_plain
+    _, vjp = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(sc), jnp.asarray(bi))
+    ref = vjp(jnp.asarray(g))
+    plain_kw = functools.partial(plain, **kw)
+    for route in ("wrapper", "function"):
+        ts = [torch.from_numpy(a).requires_grad_(True) for a in (x, sc, bi)]
+        y = wrapper(*ts, **kw) if route == "wrapper" else PlainVJP.apply(plain_kw, plain_kw, *ts)
+        y.backward(torch.from_numpy(g))
+        for t, r in zip(ts, ref):
+            _grad_close(t.grad, r)
+
+
+def test_ff_geglu_vjp_matches_erf_model_and_pallas_custom_vjp():
+    """GEGLU gradients (CPU wrapper and PlainVJP) against jax.vjp of the JAX
+    model's exact-erf FF (1e-4) and of the Pallas kernel's custom VJP, whose
+    tanh GELU differs by the approximation (GELU_TANH_REL)."""
+    import jax
+
+    from instancediffusion_tpu_torch.kernels._vjp import PlainVJP
+
+    rng = np.random.default_rng(24)
+    c, inner = 64, 256
+    x, g = _rand(rng, 2, 40, c), _rand(rng, 2, 40, c)
+    w1, b1 = _rand(rng, c, 2 * inner, scale=c ** -0.5), _rand(rng, 2 * inner, scale=0.1)
+    w2, b2 = _rand(rng, inner, c, scale=inner ** -0.5), _rand(rng, c, scale=0.1)
+    jargs = [jnp.asarray(a) for a in (x, w1, b1, w2, b2)]
+
+    def erf_ff(x, w1, b1, w2, b2):
+        return junet._apply_ff_geglu({"proj": {"w": w1, "b": b1}, "out": {"w": w2, "b": b2}}, x)
+
+    erf_ref = jax.vjp(erf_ff, *jargs)[1](jnp.asarray(g))
+    tanh_ref = jax.vjp(lambda *a: jfa_ff().fused_ff_geglu(*a, True), *jargs)[1](jnp.asarray(g))
+    for route in ("wrapper", "function"):
+        # port weights in torch Linear layout: w1 (2*inner, C), w2 (C, inner)
+        ts = [torch.from_numpy(a).requires_grad_(True)
+              for a in (x, w1.T.copy(), b1, w2.T.copy(), b2)]
+        fn = ff.fused_ff_geglu if route == "wrapper" else (
+            lambda *a: PlainVJP.apply(ff.ff_geglu_plain, ff.ff_geglu_plain, *a))
+        fn(*ts).backward(torch.from_numpy(g))
+        grads = [ts[0].grad, ts[1].grad.T, ts[2].grad, ts[3].grad.T, ts[4].grad]
+        for port, e_ref, t_ref in zip(grads, erf_ref, tanh_ref):
+            _grad_close(port, e_ref)
+            _grad_close(port, t_ref, rel=GELU_TANH_REL)
+
+
+def jfa_ff():
+    from instancediffusion_tpu.kernels import geglu_ff
+
+    return geglu_ff
+
+
+def test_kernel_train_route_and_checks():
+    """impl="kernel_train" sends long calls to the trainable kernels (their
+    CPU route equals plain attention) and refuses what they do not take."""
+    from instancediffusion_tpu_torch.ops.attention import multi_head_attention
+
+    rng = np.random.default_rng(25)
+    q, k = (torch.from_numpy(_rand(rng, 1, s, 64)) for s in (1024, 600))
+    out = multi_head_attention(q, k, k, 2, impl="kernel_train")
+    _close(out, multi_head_attention(q, k, k, 2, impl="plain").numpy())
+    with pytest.raises(ValueError, match="unscaled"):
+        multi_head_attention(q, k, k, 2, impl="kernel_train", pre_scaled=True)
+    with pytest.raises(ValueError, match="dense mask"):
+        multi_head_attention(q, k, k, 2, impl="kernel_train",
+                             mask=torch.ones(1, 1, 1024, 600, dtype=torch.bool))
