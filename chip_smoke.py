@@ -25,6 +25,18 @@ Phases, in order (each prints its lines; any failure exits non-zero):
              mis=0.36: Multi-Instance Sampler over 5 trajectories, fuser
              masked by instance labels), warm-up then timed requests, with
              the same checks
+  fused      the B=16 gate-1 UNet forward (the CFG batch of 8 images) with
+             the ds1 attentions on the FUSED_PROJ route (proj_split, flash
+             attention, merge_proj) against the unfused route, both on the
+             kernels: error and both times
+  serve      serve(port=0, DPM-Solver++ 20 steps, batch 8, mis=0) on the
+             same weights, FUSED_PROJ on: warm-up, 2 x 8 concurrent POSTs,
+             then a burst of 16; every reply a 512x512 PNG; p50 latency,
+             img/s, s/batch and launches per batch against the expected
+             counts; then the same with FUSED_PROJ off
+  ddim       generate with DDIM (20 steps, B=8), then img2img of one of its
+             images (strength 0.5 of 50 PLMS steps, B=8): two requests each,
+             s/image and launches
   train      the training step at full width (Config(), B=4 at 512 px, 30
              objects, the batch bench.py builds from numpy seed 0, densified
              weights, frozen weights bf16, remat on): (a) one step's loss
@@ -119,6 +131,12 @@ KERNELS = {
     "flash_attention_bwd_dkv_labeled": (
         "cuda", "instancediffusion_tpu_torch/csrc/flash_attention_bwd.cu",
         "instancediffusion_tpu/kernels/flash_attention.py:793"),
+    "proj_split": (
+        "cuda", "instancediffusion_tpu_torch/csrc/head_layout.cu",
+        "instancediffusion_tpu/kernels/head_layout.py:96"),
+    "merge_proj": (
+        "cuda", "instancediffusion_tpu_torch/csrc/head_layout.cu",
+        "instancediffusion_tpu/kernels/head_layout.py:178"),
 }
 
 # kernel vs plain: max |kernel - plain| <= tol * max |plain|. Both sides
@@ -173,6 +191,18 @@ PLAIN_PATH = ("flash_attention", "flash_attention_packed", "fused_group_norm",
 MIS_PATH = PLAIN_PATH + ("flash_attention_labeled",)
 TRAIN_PATH = tuple(TRAIN_LAUNCHES) + ("fused_group_norm", "fused_layer_norm", "fused_ff_geglu")
 MASKED_TRAIN_PATH = tuple(MASKED_LAUNCHES)
+# the serving path: generate_batch with DPM-Solver++ at 20 steps, batch 8
+# (`python -m instancediffusion_tpu_torch.serve --steps 20 --sampler dpm
+# --batch_size 8`). Per batch at alpha 0.75: 15 gate-1 forwards (5 ds1
+# self-attentions + 5 ds1 fusers each) and 5 gate-0 forwards (5 self);
+# on the FUSED_PROJ route each ds1 attention is 2 proj_split launches (q,
+# then k and v) and one merge_proj
+SERVE_STEPS = 20
+SERVE_B = 8
+SERVE_LAUNCHES = {"flash_attention": 175, "proj_split": 350, "merge_proj": 175}
+SERVE_PATH = PLAIN_PATH + ("proj_split", "merge_proj")
+FUSED_UNET_B = 16
+DS1_ATTENTIONS = 10  # per gate-1 forward: 5 ds1 self-attentions + 5 ds1 fusers
 ONLY_KERNELS_PHASE = {"flash_attention_packed_labeled": "kernels phase only: no path reaches it"}
 
 
@@ -415,7 +445,54 @@ def _cases(torch, dev):
             BF16_REL_TOL,
             (6 * 2 * n * c * inner, 2 * (2 * 2 * n * c + 3 * inner * c) + 4 * (2 * inner + c)),
             None))
+    cases += _head_layout_cases(torch, randn, case)
     cases += _train_cases(torch, dev, randn, case, labels64)
+    return cases
+
+
+def _head_layout_cases(torch, randn, case):
+    """K8 proj_split at the ds1 attention's shapes (8 heads of 40), at
+    batch 2 and at the serving batch 16 (CFG over 8 images): q from the
+    visual rows of the fuser's [x | objs] (a row slice), k and v over the
+    self-attention's 4096 rows and over the fuser's unpadded 4280 (written
+    padded to 4288, tail zeroed); K8' merge_proj on the flash kernel's
+    output layout, with the fp32 bias. Library: F.linear of the same
+    product without the relayout (one call over the concatenated k and v
+    weights)."""
+    import torch.nn.functional as F
+
+    from instancediffusion_tpu_torch.kernels import head_layout as hl
+
+    cases = []
+    w = lambda: randn(320, 320, std=320 ** -0.5)
+    for b in (2, 16):
+        cat = randn(b, 4280, 320)
+        for label, x, n_w in ((f"q ({b},4096,320) of a ({b},4280,320) row slice",
+                               cat[:, :4096], 1),
+                              (f"k,v ds1 self ({b},4096,320)", randn(b, 4096, 320), 2),
+                              (f"k,v ds1 fuser ({b},4280,320) -> 4288", cat, 2)):
+            ws = [w() for _ in range(n_w)]
+            wcat = torch.cat(ws)
+            m = x.shape[1]
+            mpad = -(-m // 64) * 64
+            cases.append(case(
+                "proj_split", label,
+                lambda x=x, ws=ws: tuple(hl.proj_split(x, ws, 8)),
+                lambda x=x, ws=ws: tuple(hl.proj_split_plain(x, ws, 8)),
+                BF16_REL_TOL,
+                (2 * b * m * 320 * 320 * n_w,
+                 2 * (b * m * 320 + n_w * 320 * 320 + n_w * b * mpad * 320)),
+                lambda x=x, wcat=wcat: F.linear(x, wcat)))
+        o = randn(b, 4096, 8, 40).permute(0, 2, 1, 3)  # the flash kernel's output view
+        wo, bo = w(), randn(320, std=0.1, dtype=torch.float32)
+        cases.append(case(
+            "merge_proj", f"({b},8,4096,40) flash output view -> ({b},4096,320) + bias",
+            lambda o=o, wo=wo, bo=bo: hl.merge_proj(o, wo, bo),
+            lambda o=o, wo=wo, bo=bo: hl.merge_proj_plain(o, wo, bo),
+            BF16_REL_TOL,
+            (2 * b * 4096 * 320 * 320, 2 * (2 * b * 4096 * 320 + 320 * 320) + 4 * 320),
+            lambda o=o, wo=wo, bo=bo, b=b: F.linear(o.transpose(1, 2).reshape(b, 4096, 320),
+                                                    wo, bo.to(wo.dtype))))
     return cases
 
 
@@ -693,6 +770,188 @@ def phase_request(torch, pipe, card: str, name: str, meta: dict, mis: float,
     return line, launches
 
 
+def phase_fused_unet(torch, dev, cfg, unet_mod, objs1) -> str:
+    """The B=16 gate-1 forward with FUSED_PROJ on against off, both on the
+    kernels (error relative to max |eps|, both times, the fused run's
+    head-layout launches)."""
+    from instancediffusion_tpu_torch import kernels
+    from instancediffusion_tpu_torch.models import unet as unet_lib
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    mc = cfg.model
+    b = FUSED_UNET_B
+    x = torch.randn((b, mc.image_size, mc.image_size, mc.in_channels), generator=g,
+                    device=dev).to(torch.bfloat16)
+    t = torch.full((b,), 981, device=dev)
+    ctx = torch.randn((b, 77, mc.context_dim), generator=g, device=dev).to(torch.bfloat16)
+    objs = objs1.expand(b, *objs1.shape[1:])
+    run = lambda: unet_lib.apply_unet(unet_mod, mc, x, t, ctx, None, gate_scale=1.0,
+                                      precomputed_objs=objs)
+    with torch.inference_mode():
+        eps_u = run()
+        ms_u = median_ms(run, reps=5)
+        unet_lib.FUSED_PROJ = True
+        try:
+            kernels.reset_launch_counts()
+            eps_f = run()
+            torch.cuda.synchronize()
+            launches = {k: kernels.LAUNCHES.get(k, 0) for k in
+                        ("proj_split", "merge_proj", "flash_attention")}
+            ms_f = median_ms(run, reps=5)
+        finally:
+            unet_lib.FUSED_PROJ = False
+    if launches != {"proj_split": 2 * DS1_ATTENTIONS, "merge_proj": DS1_ATTENTIONS,
+                    "flash_attention": DS1_ATTENTIONS}:
+        raise RuntimeError(f"fused: launches per forward {launches}")
+    if not torch.isfinite(eps_f.float()).all():
+        raise RuntimeError("fused: non-finite eps")
+    err = (eps_f.float() - eps_u.float()).abs().max().item()
+    scale = eps_u.float().abs().max().item()
+    rel = err / max(scale, 1e-12)
+    if scale == 0.0 or rel > UNET_REL_TOL:
+        raise RuntimeError(f"fused: FUSED_PROJ on vs off rel err {rel:.3g} > {UNET_REL_TOL}")
+    return (f"fused: B={b} gate=1.0 FUSED_PROJ on vs off (both kernels): max_abs_err={err:.4g} "
+            f"max|eps|={scale:.4g} rel={rel:.3g} tol={UNET_REL_TOL}; fused_fwd_ms={ms_f:.2f} "
+            f"unfused_fwd_ms={ms_u:.2f}; launches per fused forward {launches}")
+
+
+def _png_size(data: bytes) -> tuple[int, int]:
+    """(width, height) of an 8-bit RGB PNG after checking its signature and
+    that its image data inflate to height rows of 1 + 3 * width bytes."""
+    import zlib
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise RuntimeError("serve: reply is not a PNG")
+    w, h = int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
+    pos, idat = 8, b""
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    if len(zlib.decompress(idat)) != h * (1 + 3 * w):
+        raise RuntimeError("serve: PNG image data of the wrong size")
+    return w, h
+
+
+def _post_all(port: int, seeds) -> list[tuple[float, bytes]]:
+    """POST META with each seed at once (one thread each); (seconds, body)
+    per request, each a 200 image/png reply."""
+    import concurrent.futures
+    import urllib.request
+
+    def one(seed):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/generate",
+                                     data=json.dumps(dict(META, seed=seed)).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            if r.status != 200 or r.headers["Content-Type"] != "image/png":
+                raise RuntimeError(f"serve: reply {r.status} {r.headers['Content-Type']}")
+            body = r.read()
+        return time.perf_counter() - t0, body
+
+    with concurrent.futures.ThreadPoolExecutor(len(seeds)) as ex:
+        return list(ex.map(one, seeds))
+
+
+def phase_serve(torch, pipe, card: str, fused: bool) -> tuple[str, dict]:
+    """serve(port=0, DPM 20 steps, batch 8, mis=0) with FUSED_PROJ `fused`:
+    warm-up (one batch, before the port opens), 2 x 8 concurrent POSTs,
+    then a burst of 16. Checks every PNG (512x512) and the launches per
+    batch; returns the line and the launches of the timed requests."""
+    from instancediffusion_tpu_torch import kernels, serve
+    from instancediffusion_tpu_torch.models import unet as unet_lib
+
+    name = "serve" if fused else "serve_unfused"
+    unet_lib.FUSED_PROJ = fused
+    try:
+        t0 = time.perf_counter()
+        server = serve.serve(pipe, port=0, batch_size=SERVE_B, max_wait_ms=50.0,
+                             steps=SERVE_STEPS, sampler="dpm", mis=0.0)
+        warm_s = time.perf_counter() - t0
+        try:
+            port = server.server_address[1]
+            b0 = server.batcher.batches
+            kernels.reset_launch_counts()
+            rounds = []
+            for seeds in (range(8), range(100, 108), range(200, 216)):
+                t0 = time.perf_counter()
+                replies = _post_all(port, list(seeds))
+                rounds.append((time.perf_counter() - t0, replies))
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            batches = server.batcher.batches - b0
+            batch_s = list(server.batcher.batch_seconds)[-batches:]
+            phases = ", ".join(f"{k} {v:.3f}s" for k, v in pipe.last_timings.items())
+        finally:
+            server.shutdown()
+            server.server_close()
+            server.batcher.close()
+    finally:
+        unet_lib.FUSED_PROJ = False
+    size = pipe.image_size
+    lat = sorted(s for _, replies in rounds for s, _ in replies)
+    bodies = [body for _, replies in rounds for _, body in replies]
+    if any(_png_size(b) != (size, size) for b in bodies) or len(set(bodies)) < 2:
+        raise RuntimeError(f"{name}: replies are not distinct {size}x{size} PNGs")
+    per = {k: launches.get(k, 0) / batches for k in SERVE_LAUNCHES}
+    want = SERVE_LAUNCHES if fused else dict(SERVE_LAUNCHES, proj_split=0, merge_proj=0)
+    missing = [k for k in (SERVE_PATH if fused else PLAIN_PATH) if launches.get(k, 0) <= 0]
+    if per != want or missing:
+        raise RuntimeError(f"{name}: {batches} batches, launches per batch {per} (expected "
+                           f"{want}), never launched {missing}")
+    n_img = len(bodies)
+    total_s = sum(s for s, _ in rounds)
+    line = (f"{name}: DPM-{SERVE_STEPS} batch {SERVE_B} FUSED_PROJ={fused}: warm-up "
+            f"{warm_s:.2f}s; rounds of 8, 8, 16 concurrent POSTs in "
+            f"{', '.join(f'{s:.3f}s' for s, _ in rounds)} ({n_img / total_s:.3f} img/s overall, "
+            f"burst {16 / rounds[2][0]:.3f} img/s); latency p50 {lat[len(lat) // 2]:.3f}s "
+            f"max {lat[-1]:.3f}s; {batches} batches, s/batch "
+            f"{', '.join(f'{s:.3f}' for s in batch_s)} (last batch: {phases}); "
+            f"{n_img} PNGs {size}x{size} "
+            f"on {card}; launches per batch {per}; launches {launches}")
+    return line, launches
+
+
+def phase_ddim_img2img(torch, pipe, card: str) -> tuple[str, dict, dict]:
+    """generate with DDIM (20 steps, B=8), then img2img of its first image
+    (strength 0.5, 50 steps: 25 PLMS steps, B=8); two requests each, the
+    launches of the second."""
+    import numpy as np
+
+    from instancediffusion_tpu_torch import kernels
+
+    size = pipe.image_size
+    out = {}
+    for name, call in (
+            ("ddim", lambda s: pipe.generate(META, num_images=N_IMAGES, steps=20,
+                                             sampler="ddim", seed=s)),
+            ("img2img", lambda s: pipe.img2img(out["ddim"][2][0], META, strength=0.5,
+                                               num_images=N_IMAGES, steps=STEPS, seed=s))):
+        times = []
+        for seed in (1, 2):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            imgs = call(seed)
+            times.append(time.perf_counter() - t0)
+        if imgs.shape != (N_IMAGES, size, size, 3) or imgs.dtype != np.uint8 \
+                or int(imgs.max()) == int(imgs.min()):
+            raise RuntimeError(f"{name}: images {imgs.shape} {imgs.dtype}")
+        launches = dict(kernels.LAUNCHES)
+        missing = [k for k in PLAIN_PATH if launches.get(k, 0) <= 0]
+        if missing:
+            raise RuntimeError(f"{name}: kernels never launched: {missing}")
+        out[name] = (times, launches, imgs)
+    (t_d, l_d, _), (t_i, l_i, _) = out["ddim"], out["img2img"]
+    line = (f"ddim: generate B={N_IMAGES} DDIM-20 requests {t_d[0]:.3f}s, {t_d[1]:.3f}s "
+            f"({min(t_d) / N_IMAGES:.4f} s/image); img2img B={N_IMAGES} strength 0.5 of "
+            f"{STEPS} PLMS steps requests {t_i[0]:.3f}s, {t_i[1]:.3f}s "
+            f"({min(t_i) / N_IMAGES:.4f} s/image) on {card}; launches ddim {l_d}, "
+            f"img2img {l_i}")
+    return line, l_d, l_i
+
+
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
@@ -919,7 +1178,7 @@ def main() -> int:
     os.environ.setdefault("IDTPU_ALLOW_HASH_TOKENIZER", "1")
     cfg = apply_test_preset(Config(), "box")
     t0 = time.perf_counter()
-    pipe = InstanceDiffusionPipeline.random_init(cfg, seed=0, device=dev)
+    pipe = InstanceDiffusionPipeline.random_init(cfg, seed=0, device=dev, vae_encoder=True)
     densify_(pipe.unet, 1)
     densify_(pipe.vae, 2)
     densify_(pipe.clip, 3)
@@ -929,6 +1188,7 @@ def main() -> int:
     log(line)
     log(phase_unet(torch, dev, cfg, pipe.unet, objs, masked=False))
     log(phase_unet(torch, dev, cfg, pipe.unet, objs, masked=True))
+    log(phase_fused_unet(torch, dev, cfg, pipe.unet, objs))
     line, launches_plain = phase_request(torch, pipe, card, "slice", META, 0.0, PLAIN_PATH)
     log(line)
 
@@ -940,6 +1200,15 @@ def main() -> int:
     line, launches_mis = phase_request(torch, mpipe, card, "mis", dict(META, segs=meta_segs()),
                                        0.36, MIS_PATH)
     log(line)
+
+    # the serving path (generate_batch, DPM-20, batch 8) on the FUSED_PROJ
+    # route and off it; DDIM and img2img requests
+    line, launches_serve = phase_serve(torch, pipe, card, fused=True)
+    log(line)
+    line, launches_serve_unfused = phase_serve(torch, pipe, card, fused=False)
+    log(line)
+    line, launches_ddim, launches_i2i = phase_ddim_img2img(torch, pipe, card)
+    log(line)
     del pipe, mpipe
     torch.cuda.empty_cache()
 
@@ -950,6 +1219,9 @@ def main() -> int:
     for name, (route, source, replaces) in KERNELS.items():
         r = results[name]
         by_path = {"slice": launches_plain.get(name, 0), "mis": launches_mis.get(name, 0),
+                   "serve": launches_serve.get(name, 0),
+                   "serve_unfused": launches_serve_unfused.get(name, 0),
+                   "ddim": launches_ddim.get(name, 0), "img2img": launches_i2i.get(name, 0),
                    "train": launches_train.get(name, 0),
                    "train_masked": launches_masked.get(name, 0)}
         entry = {

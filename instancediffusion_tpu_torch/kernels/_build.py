@@ -46,6 +46,8 @@ _SIGNATURES = {
                        _I, _P],
     "idt_layer_norm": [_P, _P, _P, _P, _LL, _I, _F, _I, _P],
     "idt_geglu_ff": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "idt_proj_split": [_P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "idt_merge_proj": [_P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -25,10 +25,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from instancediffusion_tpu_torch.config import UNetConfig
+from instancediffusion_tpu_torch.kernels.flash_attention import flash_attention
 from instancediffusion_tpu_torch.kernels.geglu_ff import ff_geglu_plain, fused_ff_geglu
+from instancediffusion_tpu_torch.kernels.head_layout import merge_proj, proj_split
 from instancediffusion_tpu_torch.models import unifusion
 from instancediffusion_tpu_torch.nn import core as nn
-from instancediffusion_tpu_torch.ops.attention import multi_head_attention
+from instancediffusion_tpu_torch.ops.attention import is_big, multi_head_attention
 from instancediffusion_tpu_torch.ops.schedules import timestep_embedding
 
 
@@ -111,8 +113,26 @@ class MHA(torch.nn.Module):
         self.to_out = nn.Linear(inner_dim, query_dim, **kw)
 
 
+# Fused projection + head split / merge around the split-heads flash kernel
+# (kernels/head_layout.py: proj_split, merge_proj) for head dims below 64
+# (ds1, c=40), inference only. Off by default, as in the JAX package: the
+# unfused route already reads and writes head views in place, so the fused
+# kernels save no copy here (PERF.md has the A/B on the H100).
+FUSED_PROJ = False
+
+
 def _apply_mha(p: MHA, x, kv, num_heads, impl, kv_len=None, mask=None, labels=None):
     c = p.to_q.weight.shape[0] // num_heads
+    n, m = x.shape[1], kv.shape[1]
+    if FUSED_PROJ and impl == "kernel" and is_big(n, m, labels) and mask is None and c < 64:
+        dt = x.dtype
+        # q pre-scaled by 1/sqrt(c); k/v padded by proj_split to its row
+        # tile with zeroed rows, masked by kv_len
+        (q,) = proj_split(x, ((p.to_q.weight * (c ** -0.5)).to(dt),), num_heads)
+        k, v = proj_split(kv, (p.to_k.weight.to(dt), p.to_v.weight.to(dt)), num_heads)
+        out = flash_attention(q, k, v, labels=labels, pre_scaled=True,
+                              kv_len=m if kv_len is None else kv_len)
+        return merge_proj(out, p.to_out.weight.to(dt), p.to_out.bias.to(dt))[:, :n]
     pre_scaled = impl == "kernel"
     if pre_scaled:
         # inference only: fold 1/sqrt(c) into the bias-free to_q weight, so

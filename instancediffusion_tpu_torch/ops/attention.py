@@ -54,6 +54,12 @@ def labels_to_dense(bits, open_):
     return keep[:, None]
 
 
+def is_big(n: int, m: int, labels=None) -> bool:
+    """The flash kernels pay off on long sequences only (JAX routing): n
+    queries over m keys; labeled calls always take them."""
+    return (n >= 1024 and m >= 512) or labels is not None
+
+
 def multi_head_attention(q, k, v, num_heads: int, mask=None, labels=None,
                          impl="plain", pre_scaled=False, kv_len=None):
     """(B,N,H*c) x (B,M,H*c) -> (B,N,H*c). impl: "kernel" routes long
@@ -64,9 +70,7 @@ def multi_head_attention(q, k, v, num_heads: int, mask=None, labels=None,
     positions, L >= M; q covers the first N. kv_len: true kv length when
     k/v are padded past it."""
     n, m = q.shape[1], k.shape[1]
-    # the flash kernel pays off on long sequences only (JAX routing);
-    # labels always take it
-    big = (n >= 1024 and m >= 512) or labels is not None
+    big = is_big(n, m, labels)
     head_c = q.shape[2] // num_heads
     if impl == "kernel" and big and mask is None and head_c >= 64:
         from instancediffusion_tpu_torch.kernels.flash_attention import (

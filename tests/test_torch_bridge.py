@@ -192,6 +192,9 @@ def test_port_import_leaves_jax_out():
         "import instancediffusion_tpu_torch.pipeline, instancediffusion_tpu_torch.io.jax_params\n"
         "import instancediffusion_tpu_torch.kernels.flash_attention\n"
         "import instancediffusion_tpu_torch.kernels.geglu_ff\n"
+        "import instancediffusion_tpu_torch.kernels.head_layout\n"
+        "import instancediffusion_tpu_torch.serve\n"
+        "import instancediffusion_tpu_torch.samplers.dpm, instancediffusion_tpu_torch.samplers.ddim\n"
         "mods = [m for m in sys.modules if m.split('.')[0] in ('jax', 'instancediffusion_tpu')]\n"
         "assert not mods, mods\n"
         "assert 'triton' not in sys.modules\n"

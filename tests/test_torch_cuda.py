@@ -18,6 +18,7 @@ import torch
 from instancediffusion_tpu_torch import kernels
 from instancediffusion_tpu_torch.kernels import flash_attention as fa
 from instancediffusion_tpu_torch.kernels import geglu_ff as ff
+from instancediffusion_tpu_torch.kernels import head_layout as hl
 from instancediffusion_tpu_torch.kernels import norms
 from instancediffusion_tpu_torch.nn import core as pnn
 from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_xla
@@ -147,6 +148,69 @@ def test_kernel_matches_plain_on_card(dev, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["q", "kv_self", "kv_fuser", "ragged"])
+def test_proj_split_matches_plain_on_card(dev, case):
+    """K8 at the ds1 shapes (batch 2, 8 heads of 40): q from a row slice of
+    the fuser's [x | objs] (batch stride (N+G)*C), k/v over 4096 rows and
+    over the unpadded 4280 (padded to 4288, tail zero); and a small ragged
+    case (100 rows, 1 padded tile)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows, n_w = {"q": (4096, 1), "kv_self": (4096, 2), "kv_fuser": (4280, 2),
+                 "ragged": (100, 2)}[case]
+    x = _rnd(g, dev, 2, 4280, 320)[:, :rows] if case == "q" else _rnd(g, dev, 2, rows, 320)
+    ws = [_rnd(g, dev, 320, 320, std=320 ** -0.5) for _ in range(n_w)]
+    kernels.reset_launch_counts()
+    outs = hl.proj_split(x, ws, 8)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"proj_split": 1}
+    refs = hl.proj_split_plain(x, ws, 8)
+    mpad = -(-rows // 64) * 64
+    for out, ref in zip(outs, refs):
+        assert out.shape == ref.shape == (2, 8, mpad, 40)
+        assert (out.float() - ref.float()).abs().max() <= REL_TOL * ref.float().abs().max()
+        assert not out[:, :, rows:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["flash_out", "contiguous"])
+def test_merge_proj_matches_plain_on_card(dev, layout):
+    """K8' on the flash kernel's output (a head view of a (B,N,H,c) buffer)
+    and on a contiguous (B,H,N,c) tensor, with the fp32 bias."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    o = _rnd(g, dev, 2, 4096, 8, 40)
+    o = o.permute(0, 2, 1, 3) if layout == "flash_out" else o.permute(0, 2, 1, 3).contiguous()
+    w = _rnd(g, dev, 320, 320, std=320 ** -0.5)
+    bias = torch.randn(320, generator=g, device=dev)
+    kernels.reset_launch_counts()
+    out = hl.merge_proj(o, w, bias)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"merge_proj": 1}
+    ref = hl.merge_proj_plain(o, w, bias)
+    assert out.shape == ref.shape == (2, 4096, 320)
+    assert (out.float() - ref.float()).abs().max() <= REL_TOL * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_fused_route_launches_head_layout_kernels(dev, monkeypatch):
+    """FUSED_PROJ on: a ds1-shaped attention goes through proj_split (q, then
+    k/v), the flash kernel and merge_proj, and agrees with the unfused
+    route."""
+    from instancediffusion_tpu_torch.models import unet as punet
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    mod = punet.MHA(320, 320, 320, generator=g, device=dev).to(torch.bfloat16)
+    x = _rnd(g, dev, 2, 4096, 320)
+    unfused = punet._apply_mha(mod, x, x, 8, "kernel")
+    monkeypatch.setattr(punet, "FUSED_PROJ", True)
+    kernels.reset_launch_counts()
+    fused = punet._apply_mha(mod, x, x, 8, "kernel")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"proj_split": 2, "flash_attention": 1, "merge_proj": 1}
+    err = (fused.float() - unfused.float()).abs().max()
+    assert err <= 2 * REL_TOL * unfused.float().abs().max()
+
+
+@pytest.mark.cuda
 def test_nn_dispatch_launches_kernels_outside_plain_kernels(dev):
     """On a bf16 CUDA tensor the layer functions go through the kernels,
     and only plain_kernels() keeps them off."""
@@ -178,6 +242,10 @@ def test_kernels_reject_what_they_do_not_take(dev):
     w2 = torch.zeros(96, 384, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 64"):
         ff.fused_ff_geglu(x, w1, torch.zeros(768), w2, torch.zeros(96))
+    with pytest.raises(ValueError, match="multiples of 64"):
+        hl.proj_split(x, [w1[:96]], 4)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        hl.merge_proj(x.reshape(2, 8, 4, 24).transpose(1, 2), w1[:96])
     assert sum(kernels.LAUNCHES.values()) == 0
 
 
