@@ -9,7 +9,14 @@ Phases, in order (each prints its lines; any failure exits non-zero):
              per-sample shapes (batch 2), in bf16 (LayerNorm also on the fp32
              ConvNeXt rows; attention also with instance labels from META's
              boxes, one sample masked and one open): max abs / relative error
-             against the stated tolerance, median kernel and plain times
+             against the stated tolerance, median kernel and plain times;
+             then the redesigned kernels at the main path's own batches
+             (attention and GroupNorm at the UNet's B=16, the training
+             forward at B=4, GroupNorm at the VAE decoder's B=8), each held
+             to its plain version and timed by device time (the kernels'
+             durations in torch.profiler over 20 back-to-back launches),
+             beside events around those 20 launches, one wrapper-timed call
+             and the library call's device time
   grounding  UniFusion in fp32 (ConvNeXt's LayerNorms through the kernel) on
              the slice's layout with random phrase embeddings and instance
              masks, seg tokens kept, kernels vs plain_kernels()
@@ -54,7 +61,11 @@ version's, a PyTorch library call's where one computes the same function
 (`library_ms`; a yardstick only, the port never calls it) and its bound:
 the larger of its FLOPs over 989 TFLOP/s (bf16 tensor cores; 67 TFLOP/s
 fp32 for the norms) and its bytes (each input read once, each output
-written once) over 3.35 TB/s, the H100 SXM's published peaks.
+written once) over 3.35 TB/s, the H100 SXM's published peaks. Attention
+lines also give `exp_bound_ms`: the kept scores, one exp2 each, over 16
+exp2 per clock per SM on 132 SMs at the card's maximum SM clock
+(`nvidia-smi --query-gpu=clocks.max.sm`); at head dim 40 it is the higher
+of the two bounds.
 Then the card's nvidia-smi line, one JSON line describing the kernels and,
 last, the device line {"ok": true, "device": {...}}.
 
@@ -93,16 +104,16 @@ META = {
 # entries are the same CUDA kernel's LABELED instantiation
 KERNELS = {
     "flash_attention": (
-        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention.cu",
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_fwd_sm90.cuh",
         "instancediffusion_tpu/kernels/flash_attention.py:213"),
     "flash_attention_labeled": (
-        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention.cu",
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_fwd_sm90.cuh",
         "instancediffusion_tpu/kernels/flash_attention.py:271"),
     "flash_attention_packed": (
-        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention.cu",
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_fwd_sm90.cuh",
         "instancediffusion_tpu/kernels/flash_attention.py:448"),
     "flash_attention_packed_labeled": (
-        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention.cu",
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_fwd_sm90.cuh",
         "instancediffusion_tpu/kernels/flash_attention.py:508"),
     "fused_group_norm": (
         "cuda", "instancediffusion_tpu_torch/csrc/norms.cu",
@@ -114,10 +125,10 @@ KERNELS = {
         "cuda", "instancediffusion_tpu_torch/csrc/geglu_ff.cu",
         "instancediffusion_tpu/kernels/geglu_ff.py:63"),
     "flash_attention_trainable": (
-        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention.cu",
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_fwd_sm90.cuh",
         "instancediffusion_tpu/kernels/flash_attention.py:539"),
     "flash_attention_trainable_labeled": (
-        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention.cu",
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_fwd_sm90.cuh",
         "instancediffusion_tpu/kernels/flash_attention.py:580"),
     "flash_attention_bwd_dq": (
         "cuda", "instancediffusion_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -181,6 +192,21 @@ MASKED_LAUNCHES = {"flash_attention_trainable": 30, "flash_attention_trainable_l
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# exp2 (MUFU.EX2) per clock per SM, and the H100 SXM's SMs
+EX2_PER_CLOCK_SM = 16
+SMS = 132
+MAIN_REPS = 20  # back-to-back launches per device-time measurement
+# GroupNorm shapes (rows, C, eps, act) of the B=16 gate-1 UNet forward and
+# of the VAE decoder at B=8 (decoding 8 images), as the path passes them
+GN_UNET_B16 = ((4096, 320, 1e-5, "silu"), (4096, 320, 1e-6, "none"), (4096, 640, 1e-5, "silu"),
+               (4096, 960, 1e-5, "silu"), (1024, 320, 1e-5, "silu"), (1024, 640, 1e-5, "silu"),
+               (1024, 640, 1e-6, "none"), (1024, 960, 1e-5, "silu"), (1024, 1280, 1e-5, "silu"),
+               (1024, 1920, 1e-5, "silu"), (256, 640, 1e-5, "silu"), (256, 1280, 1e-5, "silu"),
+               (256, 1280, 1e-6, "none"), (256, 1920, 1e-5, "silu"), (256, 2560, 1e-5, "silu"),
+               (64, 1280, 1e-5, "silu"), (64, 1280, 1e-6, "none"), (64, 2560, 1e-5, "silu"))
+GN_VAE_B8 = ((4096, 512, 1e-6, "silu"), (4096, 512, 1e-6, "none"), (16384, 512, 1e-6, "silu"),
+             (65536, 256, 1e-6, "silu"), (65536, 512, 1e-6, "silu"), (262144, 128, 1e-6, "silu"),
+             (262144, 256, 1e-6, "silu"))
 
 # kernels each path must launch in its timed requests; no path of either
 # package reaches flash_attention_packed_labeled (labels exist at ds1 only,
@@ -236,6 +262,51 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm, MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def device_ms(torch, fn, reps: int = MAIN_REPS) -> float:
+    """Device time per call: the summed durations of every kernel that
+    `reps` back-to-back calls launch (torch.profiler), over reps. Raises if
+    the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # CUPTI now and then delivers no kernel record: measure again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False))
+        if us > 0:
+            return us / 1e3 / reps
+    raise RuntimeError("device_ms: the profiler saw no device time")
+
+
+def events_ms(torch, fn, reps: int = MAIN_REPS) -> float:
+    """CUDA events around `reps` back-to-back calls, per call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 # ---------------------------------------------------------------------------
 # kernels vs plain
 # ---------------------------------------------------------------------------
@@ -266,6 +337,11 @@ def meta_segs(size: int = 512):
     return segs
 
 
+def _exp_bound(exps: float, clock_hz: float) -> float:
+    """Least ms for `exps` exp2 evaluations on the card's MUFU units."""
+    return exps / (EX2_PER_CLOCK_SM * SMS * clock_hz) * 1e3
+
+
 def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float, str]:
     """(least ms the card could take, what bounds it)."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
@@ -273,10 +349,11 @@ def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float,
 
 
 def _attn_work(kind, b, h, n, m, c, mask=None):
-    """(FLOPs, bytes) of one attention kernel call. kind: "fwd" (q k^T and
-    p v), "fwd_lse" (also writes lse), "dq" (s, dp, dq) or "dkv" (s, dp, dv,
-    dk). Labeled calls count the kept (q, key) pairs only; bf16 operands,
-    fp32 lse and delta, int32 labels."""
+    """(FLOPs, bytes, exp2 count) of one attention kernel call. kind: "fwd"
+    (q k^T and p v), "fwd_lse" (also writes lse), "dq" (s, dp, dq) or "dkv"
+    (s, dp, dv, dk); each computes one exp2 per kept score. Labeled calls
+    count the kept (q, key) pairs only; bf16 operands, fp32 lse and delta,
+    int32 labels."""
     pairs = b * n * m if mask is None else int(mask.sum().item())
     n_mm = {"fwd": 2, "fwd_lse": 2, "dq": 3, "dkv": 4}[kind]
     rows = {"fwd": 2 * n + 2 * m, "fwd_lse": 2 * n + 2 * m, "dq": 3 * n + 2 * m,
@@ -285,7 +362,7 @@ def _attn_work(kind, b, h, n, m, c, mask=None):
     nbytes += {"fwd": 0, "fwd_lse": 4, "dq": 8, "dkv": 8}[kind] * b * h * n
     if mask is not None:
         nbytes += 8 * b * max(n, m)
-    return 2 * n_mm * h * pairs * c, nbytes
+    return 2 * n_mm * h * pairs * c, nbytes, h * pairs
 
 
 def _close(out, ref, tol, lse_at=None):
@@ -327,7 +404,8 @@ def _cases(torch, dev):
 
     def case(name, label, kern, plain, tol, work, library, peak=PEAK_BF16):
         return dict(name=name, label=label, kern=kern, plain=plain, tol=tol,
-                    work=(*work, peak), library=library)
+                    work=(*work[:2], peak), exps=work[2] if len(work) > 2 else None,
+                    library=library)
 
     cases = []
     # split-heads attention at ds1 (c=40): head views of (B,N,H*c)
@@ -447,6 +525,90 @@ def _cases(torch, dev):
             None))
     cases += _head_layout_cases(torch, randn, case)
     cases += _train_cases(torch, dev, randn, case, labels64)
+    cases += _main_cases(torch, dev, randn, case)
+    return cases
+
+
+def _main_cases(torch, dev, randn, case):
+    """The redesigned kernels at the batches the main path gives them: K1,
+    K1-L and K2 at the UNet's B=16 (CFG over 8 images), K6 at the training
+    batch, K3 at every GroupNorm shape of the B=16 UNet forward and of the
+    VAE decoder at B=8. Library calls: SDPA (forward with inputs that need
+    gradients, for K6); F.group_norm (+ F.silu) on a contiguous (B, C, N)
+    copy made beforehand, so the yardstick pays no relayout."""
+    import torch.nn.functional as F
+
+    from instancediffusion_tpu_torch.kernels import flash_attention as fa
+    from instancediffusion_tpu_torch.kernels import norms
+    from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_xla
+
+    sdpa = F.scaled_dot_product_attention
+    b = FUSED_UNET_B
+    heads = lambda t, c: t.reshape(t.shape[0], t.shape[1], 8, c).transpose(1, 2)
+    cases = []
+    for label, m, kv_len in (("self 4096x4096", 4096, None), ("fuser 4096x4280", 4280, None),
+                             ("fuser 4096x4608 kv_len=4280", 4608, 4280)):
+        qh, kh, vh = (heads(randn(b, s, 320), 40) for s in (4096, m, m))
+        mm = m if kv_len is None else kv_len
+        cases.append(case(
+            "flash_attention", f"B={b} {label}",
+            lambda qh=qh, kh=kh, vh=vh, kv=kv_len: fa.flash_attention(qh, kh, vh, kv_len=kv),
+            lambda qh=qh, kh=kh, vh=vh, mm=mm: sdpa_xla(qh, kh[:, :, :mm], vh[:, :, :mm]),
+            BF16_REL_TOL, _attn_work("fwd", b, 8, 4096, mm, 40),
+            lambda qh=qh, kh=kh, vh=vh, mm=mm: sdpa(qh, kh[:, :, :mm], vh[:, :, :mm])))
+    # META's labels on the 8 conditional rows, open labels on the 8 unconditional
+    bits, open_ = meta_labels(torch, dev, 64)
+    labels = (bits.repeat_interleave(b // 2, 0), open_.repeat_interleave(b // 2, 0))
+    mask = labels_to_dense(*labels)[:, :, :4096, :4280]
+    qh, kh, vh = (heads(randn(b, s, 320), 40) for s in (4096, 4280, 4280))
+    cases.append(case(
+        "flash_attention_labeled", f"B={b} fuser 4096x4280 labeled",
+        lambda: fa.flash_attention(qh, kh, vh, labels=labels),
+        lambda: sdpa_xla(qh, kh, vh, mask=mask), BF16_REL_TOL,
+        _attn_work("fwd", b, 8, 4096, 4280, 40, mask),
+        lambda: sdpa(qh, kh, vh, attn_mask=mask)))
+    for label, m in (("self 1024x1024", 1024), ("fuser 1024x1208", 1208)):
+        q, k, v = randn(b, 1024, 640), randn(b, m, 640), randn(b, m, 640)
+
+        def plain(q=q, k=k, v=v):
+            out = sdpa_xla(heads(q, 80), heads(k, 80), heads(v, 80))
+            return out.transpose(1, 2).reshape(b, 1024, 640)
+
+        cases.append(case(
+            "flash_attention_packed", f"B={b} {label}",
+            lambda q=q, k=k, v=v: fa.flash_attention_packed(q, k, v, 8), plain, BF16_REL_TOL,
+            _attn_work("fwd", b, 8, 1024, m, 80),
+            lambda q=q, k=k, v=v: sdpa(heads(q, 80), heads(k, 80), heads(v, 80))))
+    for label, n, m, c in (("ds1 self 4096x4096", 4096, 4096, 40),
+                           ("ds1 fuser 4096x4280", 4096, 4280, 40),
+                           ("ds2 self 1024x1024", 1024, 1024, 80),
+                           ("ds2 fuser 1024x1208", 1024, 1208, 80)):
+        q, k, v = (heads(randn(TRAIN_B, s, 8 * c), c) for s in (n, m, m))
+        need = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        cases.append(case(
+            "flash_attention_trainable", f"B={TRAIN_B} {label}",
+            lambda q=q, k=k, v=v: fa.flash_attention_fwd_lse(q, k, v),
+            lambda q=q, k=k, v=v: fa.flash_attention_fwd_lse_plain(q, k, v),
+            BF16_REL_TOL, _attn_work("fwd_lse", TRAIN_B, 8, n, m, c),
+            lambda need=need: sdpa(*need)))
+        cases[-1]["lse_at"] = 1
+    for bb, shapes in ((b, GN_UNET_B16), (N_IMAGES, GN_VAE_B8)):
+        for n, c, eps, act in shapes:
+            x = randn(bb, n, c, std=3.0) + 0.5
+            sc, bi = randn(c), randn(c)  # bf16, as the modules keep them
+            xt = x.transpose(1, 2).contiguous()
+
+            def lib(xt=xt, sc=sc, bi=bi, e=eps, a=act):
+                y = F.group_norm(xt, 32, sc, bi, e)
+                return F.silu(y) if a == "silu" else y
+
+            cases.append(case(
+                "fused_group_norm", f"({bb},{n},{c}) eps={eps} {act}",
+                lambda x=x, sc=sc, bi=bi, e=eps, a=act: norms.fused_group_norm(x, sc, bi, 32, e, a),
+                lambda x=x, sc=sc, bi=bi, e=eps, a=act: norms.group_norm_plain(x, sc, bi, 32, e, a),
+                BF16_REL_TOL, (8 * bb * n * c, 2 * 2 * bb * n * c + 4 * c), lib, PEAK_FP32))
+    for cs in cases:
+        cs["main"] = True
     return cases
 
 
@@ -550,14 +712,24 @@ def _train_cases(torch, dev, randn, case, labels64):
 
 
 def phase_kernels(torch, dev) -> dict:
-    """Compare every kernel with its plain version and time both, and the
-    library call where there is one (median of 10 runs, CUDA events), at
-    every case. The JSON line reports each kernel's first case."""
+    """Compare every kernel with its plain version and time it. Batch-2
+    cases: the kernel, its plain version and the library call where there is
+    one, each the median of 10 wrapper-timed calls (CUDA events). Main-path
+    cases (`main`): the kernel's and the library call's device time over
+    MAIN_REPS back-to-back launches, events around those launches, one
+    wrapper-timed median. The JSON line reports each kernel's first batch-2
+    case and its first main-path case."""
+    from instancediffusion_tpu_torch.kernels import flash_attention as fa
+
+    clock = max_sm_clock_hz()
+    log(f"kernels: exp bound at {EX2_PER_CLOCK_SM} exp2/clock/SM x {SMS} SMs x "
+        f"{clock / 1e6:.0f} MHz (nvidia-smi clocks.max.sm)")
     results = {}
     failures = []
     for cs in _cases(torch, dev):
         name, label, kern, plain, tol = (cs[k] for k in ("name", "label", "kern", "plain",
                                                           "tol"))
+        main = cs.get("main", False)
         out = kern()
         ref = plain()
         torch.cuda.synchronize()
@@ -566,21 +738,49 @@ def phase_kernels(torch, dev) -> dict:
         entry = results.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["max_rel_err"] = max(entry["max_rel_err"], rel)
-        ms, plain_ms = median_ms(kern), median_ms(plain)
-        lib_ms = None if cs["library"] is None else median_ms(cs["library"])
         flops, nbytes, peak = cs["work"]
         bound_ms, bound_by = _bound(flops, nbytes, peak)
-        if "ms" not in entry:
-            entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
-        extra = ""
-        if "sdpa_fwd_bwd" in cs:
-            extra = f" sdpa_fwd_bwd_ms={median_ms(cs['sdpa_fwd_bwd']):.4f}"
-        lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
-        log(f"kernels: {name} {label}: max_abs_err={err:.4g} rel={rel:.3g} "
-            f"tol={tol:g} {'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={bound_ms:.4f} "
-            f"({bound_by}) flops={flops:.4g} bytes={nbytes:.4g}{extra}")
+        exp_ms = None if cs["exps"] is None else _exp_bound(cs["exps"], clock)
+        exp_txt = "" if exp_ms is None else f" exp_bound_ms={exp_ms:.4f}"
+        verdict = f"max_abs_err={err:.4g} rel={rel:.3g} tol={tol:g} {'ok' if ok else 'FAIL'}"
+        if main:
+            dev_ms, ev_ms, wrap_ms = (device_ms(torch, kern), events_ms(torch, kern),
+                                      median_ms(kern))
+            lib_ms = None if cs["library"] is None else device_ms(torch, cs["library"])
+            if "main_device_ms" not in entry:
+                entry.update(main_label=label, main_device_ms=dev_ms, main_library_ms=lib_ms,
+                             main_bound_ms=bound_ms, main_bound_by=bound_by)
+                if exp_ms is not None:
+                    entry["main_exp_bound_ms"] = exp_ms
+            extra = ""
+            if name == "flash_attention" and entry["main_label"] == label:
+                enc = []
+                for _ in range(MAIN_REPS):
+                    kern()
+                    enc.append(fa.encode_us())
+                extra = f" tensor_map_encode_us={sum(enc) / len(enc):.2f} (host, per call)"
+            ratio = "" if lib_ms is None else f" kernel/library={dev_ms / lib_ms:.3f}"
+            lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+            log(f"kernels (main path): {name} {label}: {verdict} device_ms={dev_ms:.4f} "
+                f"events_ms={ev_ms:.4f} wrapper_ms={wrap_ms:.4f} library_device_ms={lib}"
+                f"{ratio} bound_ms={bound_ms:.4f} ({bound_by}){exp_txt}{extra}")
+        else:
+            ms, plain_ms = median_ms(kern), median_ms(plain)
+            lib_ms = None if cs["library"] is None else median_ms(cs["library"])
+            if "ms" not in entry:
+                entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+                if exp_ms is not None:
+                    entry["exp_bound_ms"] = exp_ms
+            extra = ""
+            if "sdpa_fwd_bwd" in cs:
+                fwd_bwd = median_ms(cs["sdpa_fwd_bwd"])
+                extra = (f" sdpa_fwd_bwd_ms={fwd_bwd:.4f} sdpa_bwd_ms={fwd_bwd - lib_ms:.4f} "
+                         "(derived: fwd_bwd - library)")
+            lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+            log(f"kernels: {name} {label}: {verdict} kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={bound_ms:.4f} "
+                f"({bound_by}){exp_txt} flops={flops:.4g} bytes={nbytes:.4g}{extra}")
         if not ok:
             failures.append(f"{name} {label}: rel err {rel:.3g} > {tol:g} (or lse > "
                             f"{LSE_ATOL})")
@@ -1231,6 +1431,9 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         }
+        entry.update({k: r[k] for k in ("exp_bound_ms", "main_label", "main_device_ms",
+                                        "main_library_ms", "main_bound_ms", "main_bound_by",
+                                        "main_exp_bound_ms") if k in r})
         if name in ONLY_KERNELS_PHASE:
             entry["checked"] = ONLY_KERNELS_PHASE[name]
         kernels_json.append(entry)

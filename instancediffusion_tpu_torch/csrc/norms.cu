@@ -5,108 +5,220 @@
 // (_gn_kernel); LayerNorm replaces ::fused_layer_norm (_ln_kernel).
 //
 // Both are bound by device-memory bytes: a handful of FLOPs per element
-// against 4 bytes moved (one bf16 read, one bf16 write) at best. The design
-// keeps that to one read for statistics (a second from L1/L2 for LayerNorm's
-// rows) and one read-modify-write, with fp32 math and one rounding on store.
+// against 4 bytes moved (one bf16 read, one bf16 write) at best.
 //
 // GroupNorm. The TPU kernel held a whole batch row in VMEM with grid=(B,);
 // on the card that would be 8-16 blocks for 132 SMs, and a VAE row is
-// 262144 x 128. So the rows of each sample are split across blocks:
-//   gn_stats_kernel  grid (splits, B): per-thread fp32 sums over at most a
-//                    few hundred elements, combined per group in fp64 in
-//                    shared memory, written as one fp64 partial per block
-//                    (no global atomics, so the result is deterministic);
-//   gn_apply_kernel  grid (chunks, B): reduces the partials of its sample in
-//                    fp64 (E[x^2] - E[x]^2 in fp64 does not cancel at a
-//                    million elements per group), then normalises, applies
-//                    the affine and the optional SiLU, and rounds once.
+// 262144 x 128. So each sample's rows are split across the blocks of one
+// cooperative grid (at most kCoopBlocksPerSM blocks per SM, all resident),
+// in one launch, with the affine read as the module keeps it (bf16 or fp32).
+// Every thread owns one 16-byte vector of 8 channels and walks rows with
+// 16-byte loads; its fp32 per-channel sums are folded into the groups in
+// shared memory in a fixed order, each block writes its fp64 group sums, a
+// grid barrier, then every block reduces its sample's partials in a fixed
+// order (deterministic: no atomics in any sum; fp64 E[x^2] - E[x]^2 does not
+// cancel at a million elements per group) and normalises its rows walking
+// them in reverse, so the rows it read last come from L2. It applies the
+// affine and the optional SiLU in fp32 and rounds once.
+//
+// A one-read design that keeps a sample in a thread-block cluster's shared
+// memory (a bulk copy per CTA, the groups' sums all-reduced through
+// distributed shared memory) was built and timed against this one on the
+// H100 and lost at every main-path shape: a (4096, 320) sample needs 16
+// CTAs of 164 KB, so each CTA runs alone on its SM, few such clusters fit
+// the card at once, and no CTA overlaps its load with its store. Reading x
+// twice, the second time partly from L2, costs less than that.
 //
 // LayerNorm: one warp per row, two passes over the row for mean and
 // variance (the row is at most a few KB and stays in L1), fp32 math. It takes
 // bf16 rows (UNet, CLIP) and fp32 rows (ConvNeXt in the grounding tokenizer).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxGroups = 64;
+constexpr int kGnMaxThreads = 320;  // C / 8 vectors per row, up to C = 2560
+constexpr int kCoopBlocksPerSM = 4;
 
-__global__ void __launch_bounds__(kThreads) gn_stats_kernel(const __nv_bfloat16* __restrict__ x,
-                                                            double* __restrict__ partial, int N,
-                                                            int C, int G, int rows_per) {
-    __shared__ double sums[2 * kMaxGroups];
-    const int b = blockIdx.y;
-    const int split = blockIdx.x;
-    for (int i = threadIdx.x; i < 2 * G; i += kThreads) sums[i] = 0.0;
-    __syncthreads();
-
-    const int r0 = split * rows_per;
-    const int r1 = min(N, r0 + rows_per);
-    // threads cover `lanes` consecutive channels of `row_groups` rows at once
-    const int lanes = min(C, kThreads);
-    const int row_groups = kThreads / lanes;
-    const int t = threadIdx.x;
-    const int cg = C / G;
-    if (t < lanes * row_groups) {
-        const __nv_bfloat16* xb = x + (long long)b * N * C;
-        for (int ch = t % lanes; ch < C; ch += lanes) {
-            float s1 = 0.f, s2 = 0.f;
-            for (int r = r0 + t / lanes; r < r1; r += row_groups) {
-                const float val = __bfloat162float(xb[(long long)r * C + ch]);
-                s1 += val;
-                s2 += val * val;
-            }
-            atomicAdd(&sums[ch / cg], (double)s1);
-            atomicAdd(&sums[G + ch / cg], (double)s2);
-        }
+__device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const float2 v = __bfloat1622float2(h[i]);
+        f[2 * i] = v.x;
+        f[2 * i + 1] = v.y;
     }
-    __syncthreads();
-    double* out = partial + ((long long)b * gridDim.x + split) * 2 * G;
-    for (int i = threadIdx.x; i < 2 * G; i += kThreads) out[i] = sums[i];
 }
 
-__global__ void __launch_bounds__(kThreads) gn_apply_kernel(
-    const __nv_bfloat16* __restrict__ x, const double* __restrict__ partial,
-    const float* __restrict__ scale, const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-    int N, int C, int G, int splits, int rows_per, float eps, int silu) {
-    __shared__ float mean_g[kMaxGroups];
-    __shared__ float inv_g[kMaxGroups];
-    const int b = blockIdx.y;
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+    uint4 raw;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = pack_bf16(f[2 * i], f[2 * i + 1]);
+    return raw;
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// The thread's place: vector v (channels 8v..8v+7) of row slot rs; rows
+// rs, rs + R, ... of its chunk. blockDim = (C / 8) * R.
+struct GnThread {
+    int lanes, R, v, rs, cg;
+    __device__ GnThread(int C, int G) {
+        lanes = C / 8;
+        R = blockDim.x / lanes;
+        v = threadIdx.x % lanes;
+        rs = threadIdx.x / lanes;
+        cg = C / G;
+    }
+};
+
+// Fold every thread's 8 per-channel values into per-group sums in a fixed
+// order: red holds R x C floats; out[g] for g < G (threads 0..G-1 write).
+template <typename T>
+__device__ void fold_groups(const GnThread& th, const float (&acc)[8], float* red, T* out, int C,
+                            int G) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) red[th.rs * C + 8 * th.v + e] = acc[e];
+    __syncthreads();
     if (threadIdx.x < G) {
-        const double* pb = partial + (long long)b * splits * 2 * G;
-        double s1 = 0.0, s2 = 0.0;
-        for (int s = 0; s < splits; ++s) {
-            s1 += pb[s * 2 * G + threadIdx.x];
-            s2 += pb[s * 2 * G + G + threadIdx.x];
+        T s = 0;
+        for (int r = 0; r < th.R; ++r)
+            for (int ch = threadIdx.x * th.cg; ch < (threadIdx.x + 1) * th.cg; ++ch)
+                s += static_cast<T>(red[r * C + ch]);
+        out[threadIdx.x] = s;
+    }
+    __syncthreads();
+}
+
+// load(0) + ... + load(count - 1) in a fixed order, eight loads in flight
+// (the cross-block combine reads global memory)
+template <typename T, typename F>
+__device__ __forceinline__ T sum_fixed_order(int count, F load) {
+    T acc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = 0;
+    int i = 0;
+    for (; i + 8 <= count; i += 8) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] += load(i + j);
+    }
+    for (; i < count; ++i) acc[0] += load(i);
+    return ((acc[0] + acc[1]) + (acc[2] + acc[3])) + ((acc[4] + acc[5]) + (acc[6] + acc[7]));
+}
+
+// y = x * a + b per channel, optional SiLU, one rounding
+__device__ __forceinline__ uint4 gn_apply8(const uint4& raw, const float (&a)[8],
+                                           const float (&b)[8], int silu) {
+    float f[8];
+    unpack8(raw, f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+        float y = fmaf(f[e], a[e], b[e]);
+        if (silu) y = y / (1.f + __expf(-y));
+        f[e] = y;
+    }
+    return pack8(f);
+}
+
+template <typename AT>
+__device__ __forceinline__ void gn_affine(const GnThread& th, const AT* scale, const AT* bias,
+                                          const float* mean, const float* rstd, float (&a)[8],
+                                          float (&b)[8]) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+        const int ch = 8 * th.v + e;
+        const int g = ch / th.cg;
+        a[e] = rstd[g] * to_f(scale[ch]);
+        b[e] = to_f(bias[ch]) - mean[g] * a[e];
+    }
+}
+
+// Grid (splits, B), launched cooperatively; partial: fp64 (B, splits, 2,
+// G); dynamic shared memory R x C fp32.
+template <typename AT>
+__global__ void __launch_bounds__(kGnMaxThreads, kCoopBlocksPerSM) gn_kernel(
+    const __nv_bfloat16* __restrict__ x, const AT* __restrict__ scale,
+    const AT* __restrict__ bias, __nv_bfloat16* __restrict__ y, double* __restrict__ partial,
+    int N, int C, int G, int rows_per, float eps, int silu) {
+    extern __shared__ __align__(128) unsigned char smem[];
+    __shared__ double s1g[kMaxGroups], s2g[kMaxGroups];
+    __shared__ float mean[kMaxGroups], rstd[kMaxGroups];
+    const GnThread th(C, G);
+    const int b = blockIdx.y, split = blockIdx.x, splits = gridDim.x;
+    const int r0 = split * rows_per;
+    const int rows = max(0, min(N, r0 + rows_per) - r0);
+    float* red = reinterpret_cast<float*>(smem);
+    const long long base = ((long long)b * N + r0) * C;
+    const uint4* xv = reinterpret_cast<const uint4*>(x + base);
+
+    float a1[8], a2[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a1[e] = a2[e] = 0.f;
+#pragma unroll 4
+    for (int r = th.rs; r < rows; r += th.R) {
+        float f[8];
+        unpack8(__ldg(xv + (long long)r * th.lanes + th.v), f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+            a1[e] += f[e];
+            a2[e] = fmaf(f[e], f[e], a2[e]);
         }
-        const double cnt = (double)N * (double)(C / G);
-        const double mean = s1 / cnt;
-        const double var = fmax(s2 / cnt - mean * mean, 0.0);
-        mean_g[threadIdx.x] = (float)mean;
-        inv_g[threadIdx.x] = (float)(1.0 / sqrt(var + (double)eps));
+    }
+    fold_groups(th, a1, red, s1g, C, G);
+    fold_groups(th, a2, red, s2g, C, G);
+    double* pb = partial + (long long)b * splits * 2 * G;
+    if (threadIdx.x < G) {
+        pb[split * 2 * G + threadIdx.x] = s1g[threadIdx.x];
+        pb[split * 2 * G + G + threadIdx.x] = s2g[threadIdx.x];
+    }
+    cg::this_grid().sync();
+    if (threadIdx.x < G) {
+        const double s1 = sum_fixed_order<double>(
+            splits, [&](int s) { return pb[s * 2 * G + threadIdx.x]; });
+        const double s2 = sum_fixed_order<double>(
+            splits, [&](int s) { return pb[s * 2 * G + G + threadIdx.x]; });
+        const double cnt = (double)N * th.cg;
+        const double mu = s1 / cnt;
+        mean[threadIdx.x] = static_cast<float>(mu);
+        rstd[threadIdx.x] = static_cast<float>(1.0 / sqrt(fmax(s2 / cnt - mu * mu, 0.0) + eps));
     }
     __syncthreads();
 
-    const int r0 = blockIdx.x * rows_per;
-    const int r1 = min(N, r0 + rows_per);
-    const int half = C / 2;
-    const int cg = C / G;
-    const long long base = ((long long)b * N + r0) * C;
-    const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(x + base);
-    __nv_bfloat162* yv = reinterpret_cast<__nv_bfloat162*>(y + base);
-    const int pairs = (r1 - r0) * half;
-    for (int i = threadIdx.x; i < pairs; i += kThreads) {
-        const int ch = (i % half) * 2;
-        const float2 f = __bfloat1622float2(xv[i]);
-        const int g0 = ch / cg, g1 = (ch + 1) / cg;
-        float y0 = (f.x - mean_g[g0]) * inv_g[g0] * scale[ch] + bias[ch];
-        float y1 = (f.y - mean_g[g1]) * inv_g[g1] * scale[ch + 1] + bias[ch + 1];
-        if (silu) {
-            y0 = y0 / (1.f + expf(-y0));
-            y1 = y1 / (1.f + expf(-y1));
-        }
-        yv[i] = __floats2bfloat162_rn(y0, y1);
+    float a[8], c0[8];
+    gn_affine(th, scale, bias, mean, rstd, a, c0);
+    uint4* yv = reinterpret_cast<uint4*>(y + base);
+    const int last = rows > th.rs ? th.rs + (rows - 1 - th.rs) / th.R * th.R : -1;
+#pragma unroll 4
+    for (int r = last; r >= 0; r -= th.R) {
+        const long long i = (long long)r * th.lanes + th.v;
+        yv[i] = gn_apply8(__ldg(xv + i), a, c0, silu);
     }
+}
+
+template <typename AT>
+cudaError_t gn_launch(const void* x, const void* scale, const void* bias, void* y, void* partial,
+                      int B, int N, int C, int G, int splits, int rows_per, int threads, int smem,
+                      float eps, int silu, cudaStream_t s) {
+    const auto* xp = static_cast<const __nv_bfloat16*>(x);
+    const auto* sp = static_cast<const AT*>(scale);
+    const auto* bp = static_cast<const AT*>(bias);
+    auto* yp = static_cast<__nv_bfloat16*>(y);
+    auto* pp = static_cast<double*>(partial);
+    auto kern = gn_kernel<AT>;
+    cudaError_t err = idt_allow_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    void* args[] = {&xp, &sp, &bp, &yp, &pp, &N, &C, &G, &rows_per, &eps, &silu};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), dim3(splits, B),
+                                      dim3(threads), args, smem, s);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
 }
 
 constexpr int kRowsPerLnBlock = kThreads / 32;
@@ -157,22 +269,23 @@ __global__ void __launch_bounds__(kThreads) ln_kernel(const T2* __restrict__ x,
 
 }  // namespace
 
-// x, y: (B, N, C) contiguous bf16; scale, bias: (C,) fp32; partial: fp64
-// scratch of B * stat_splits * 2 * G. Requires C % G == 0, C even, G <= 64.
+// x, y: (B, N, C) contiguous bf16; scale, bias: (C,) bf16 (affine_fp32 = 0)
+// or fp32 (1); partial: fp64 scratch of B * splits * 2 * G. Each sample's
+// rows are cut into `splits` chunks of rows_per; threads = (C / 8) * R, smem
+// = R x C fp32. Requires C % 8 == 0, C % G == 0, G <= 64, threads <= 320,
+// and B * splits blocks resident at once (the launch fails otherwise).
 IDT_EXPORT int idt_group_norm(const void* x, const void* scale, const void* bias, void* y,
-                              void* partial, int B, int N, int C, int G, int stat_splits,
-                              int stat_rows, int apply_chunks, int apply_rows, float eps,
-                              int silu, void* stream) {
+                              void* partial, int B, int N, int C, int G, int splits, int rows_per,
+                              int threads, int smem, float eps, int silu, int affine_fp32,
+                              void* stream) {
+    if (C % 8 || C % G || G > kMaxGroups || threads > kGnMaxThreads || threads % (C / 8))
+        return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    gn_stats_kernel<<<dim3(stat_splits, B), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<double*>(partial), N, C, G, stat_rows);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    gn_apply_kernel<<<dim3(apply_chunks, B), kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const double*>(partial),
-        static_cast<const float*>(scale), static_cast<const float*>(bias),
-        static_cast<__nv_bfloat16*>(y), N, C, G, stat_splits, apply_rows, eps, silu);
-    return cudaGetLastError();
+    return static_cast<int>(
+        affine_fp32 ? gn_launch<float>(x, scale, bias, y, partial, B, N, C, G, splits, rows_per,
+                                       threads, smem, eps, silu, s)
+                    : gn_launch<__nv_bfloat16>(x, scale, bias, y, partial, B, N, C, G, splits,
+                                               rows_per, threads, smem, eps, silu, s));
 }
 
 // x, y: (rows, C) contiguous, bf16 (fp32 = 0) or fp32 (fp32 = 1); scale,

@@ -1,18 +1,23 @@
 """Forward flash attention on the (B,H,N,c) and (B,N,H*c) layouts.
 
-CUDA source: `csrc/flash_attention.cu`, one kernel for both entry points.
-It replaces `instancediffusion_tpu/kernels/flash_attention.py`:
-`flash_attention` (`_flash_kernel`, and `_flash_kernel_labeled` with
-`labels=`) and `flash_attention_packed` (`_flash_kernel_packed`,
-`_flash_kernel_packed_labeled`), forward. The kernel takes base pointers and
-(batch, head, row) element strides, so the split-heads entry point reads the
-head views of the projection output in place (no head-split copy) and the
-packed one slices heads in-kernel. Bound by tensor-core FLOPs; fp32 online
-softmax keeps the score matrix on chip, and c=40 is zero-padded to 48 in
-shared memory only.
+CUDA source: `csrc/flash_fwd_sm90.cuh` (the kernel; one instantiation set
+per `csrc/flash_fwd_*.cu`) and `csrc/flash_attention.cu` (tensor maps, C
+entry point), one kernel for both entry points. It replaces
+`instancediffusion_tpu/kernels/flash_attention.py`: `flash_attention`
+(`_flash_kernel`, and `_flash_kernel_labeled` with `labels=`) and
+`flash_attention_packed` (`_flash_kernel_packed`,
+`_flash_kernel_packed_labeled`), forward. The kernel reads q, k and v in
+place through 4-D TMA tensor maps (`tma_plan` derives them from the views'
+strides), so the split-heads entry point reads the head views of the
+projection output without a head-split copy and the packed one slices heads
+in the map. At c=40 it is bound by the exponentials (16 exp2 per clock per
+SM against ~4096 bf16 tensor-core FLOPs); the kernel's header says how its
+design (TMA ring, wgmma, two ping-ponging consumer warpgroups) hides the
+products under the softmax. c=40 is padded to 48 in shared memory only, by
+TMA's zero fill.
 
-`kv_len`: the true kv length when the caller pre-padded k/v. The kernel
-masks its own ragged tail, so callers may also pass unpadded kv.
+`kv_len`: the true kv length when the caller pre-padded k/v. The k/v maps
+end at kv_len, so callers may also pass unpadded kv.
 
 `labels=(bits, open)`: instance-masked attention. Two (B, L) int32 arrays
 indexed by sequence position over the k tokens (L >= kv_len; positions past
@@ -38,8 +43,10 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from instancediffusion_tpu_torch.kernels import LAUNCHES
 from instancediffusion_tpu_torch.kernels import _build
@@ -89,14 +96,71 @@ def _check_operands(name, tensors, strides, b, h, c):
 
 
 def _label_args(name, labels, q):
-    """(bits pointer, open pointer, label stride, kernel name) for the C
-    launchers; null pointers for unlabeled attention."""
+    """(bits pointer, open pointer, label stride, kernel name, kept tensors)
+    for the C launchers; null pointers for unlabeled attention. The rows are
+    padded to a multiple of 4 entries (16 bytes), as the forward kernel's
+    label tensor map needs."""
     if labels is None:
         return 0, 0, 0, name, None
     bits, open_ = (t.contiguous() for t in labels)
     if bits.device != q.device or open_.device != q.device:
         raise ValueError(f"{name}: labels on {bits.device}, q on {q.device}")
+    pad = -bits.shape[1] % 4
+    if pad:
+        bits, open_ = F.pad(bits, (0, pad)), F.pad(open_, (0, pad))
     return bits.data_ptr(), open_.data_ptr(), bits.shape[1], name + "_labeled", (bits, open_)
+
+
+TMA_BOX_ROWS = 128  # rows per TMA box: the kernel's query block and key tile
+TMA_BOX_COLS = 64  # head-dim columns per box: 128 bytes, one 128-byte swizzle atom
+
+
+class TmaPlan(NamedTuple):
+    """One operand's 4-D TMA tensor map: dims and box innermost first (head
+    dim, then the batch, head and row axes in order of stride), the byte
+    strides of dims 1-3, and the coordinate slot (1-3) of the head, row and
+    batch axes."""
+    dims: tuple
+    strides: tuple
+    box: tuple
+    order: tuple
+
+    def args(self, ptr: int) -> list:
+        """The 15 int64 values `idt_flash_attention` takes per operand."""
+        return [ptr, *self.dims, *self.strides, *self.box, *self.order]
+
+
+def tma_plan(sizes, strides, c, rows, box_rows=TMA_BOX_ROWS, elem_bytes=2):
+    """TmaPlan of a (B, H, rows, c) view with head dim contiguous. sizes:
+    (B, H); strides: (batch, head, row) element strides. The box is 64
+    columns (128 bytes, the swizzle's width) by box_rows rows; a column past
+    c or a row past `rows` reads as zero. An axis of extent 1 goes last, with a stride
+    that continues the others. Raises if a stride is not a multiple of 16
+    bytes or too large for a tensor map."""
+    if c % 8:
+        raise ValueError(f"tma_plan: head dim {c} is not a multiple of 8")
+    b, h = sizes
+    axes = [("batch", b, strides[0]), ("head", h, strides[1]), ("row", rows, strides[2])]
+    live = sorted((a for a in axes if a[1] > 1), key=lambda a: a[2])
+    for name, _, st in live:
+        nbytes = st * elem_bytes
+        if nbytes % 16 or not 0 < nbytes < 1 << 40:
+            raise ValueError(f"tma_plan: {name} stride {st} elements ({nbytes} bytes) is not "
+                             "a positive multiple of 16 bytes below 2**40")
+    end = live[-1][1] * live[-1][2] if live else c
+    dead = [(name, n, end) for name, n, _ in axes if n <= 1]
+    order = live + dead
+    dims = (c, *(n for _, n, _ in order))
+    byte_strides = tuple(-(-st * elem_bytes // 16) * 16 for _, _, st in order)
+    box = (TMA_BOX_COLS, *(box_rows if name == "row" else 1 for name, _, _ in order))
+    slot = {name: i + 1 for i, (name, _, _) in enumerate(order)}
+    return TmaPlan(dims, byte_strides, box, (slot["head"], slot["row"], slot["batch"]))
+
+
+def encode_us() -> float:
+    """Host microseconds the last forward launch spent encoding its tensor
+    maps."""
+    return _build.lib().idt_flash_encode_us()
 
 
 def _head_strides(*tensors):
@@ -113,14 +177,17 @@ def _launch(name, q, k, v, out, b, h, n, kv_len, c, strides, pre_scaled,
     _build.require_cuda(name, q, k, v)
     _check_operands(name, (q, k, v, out), strides, b, h, c)
     scale = 1.0 if pre_scaled else 1.0 / math.sqrt(c)
-    arr = (ctypes.c_longlong * len(strides))(*strides)
+    maps = []
+    for i, (t, rows) in enumerate(((q, n), (k, kv_len), (v, kv_len))):
+        maps += tma_plan((b, h), strides[3 * i:3 * i + 3], c, rows).args(t.data_ptr())
+    maps = (ctypes.c_longlong * len(maps))(*maps)
+    out_strides = (ctypes.c_longlong * 3)(*strides[9:12])
     bits_ptr, open_ptr, label_stride, name, _keep = _label_args(name, labels, q)
     lib = _build.lib()
     with torch.cuda.device(q.device):
         err = lib.idt_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            0 if lse is None else lse.data_ptr(), bits_ptr, open_ptr, label_stride,
-            b, h, n, kv_len, c, arr, float(scale), _build.stream_of(q),
+            maps, out.data_ptr(), 0 if lse is None else lse.data_ptr(), bits_ptr, open_ptr,
+            label_stride, b, h, n, kv_len, c, out_strides, float(scale), _build.stream_of(q),
         )
     _build.check(err, name)
     LAUNCHES[name] += 1

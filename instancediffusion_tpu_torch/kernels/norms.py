@@ -4,11 +4,14 @@ CUDA source: `csrc/norms.cu`. It replaces
 `instancediffusion_tpu/kernels/norms.py::fused_group_norm` (`_gn_kernel`)
 and `::fused_layer_norm` (`_ln_kernel`). LayerNorm also takes fp32 rows: the
 grounding tokenizer (ConvNeXt) runs in fp32, as in the JAX pipeline. Both
-are bound by device-memory
-bytes; the kernels read each element once for statistics and once to
-normalise, with fp32 math and one rounding on store. GroupNorm splits each
-sample's rows across blocks (fp64 partial sums per group), because one
-block per sample would use 8-16 of the card's 132 SMs.
+are bound by device-memory bytes.
+
+GroupNorm is one cooperative launch with the affine as the module keeps it
+(bf16 or fp32), 16-byte loads and a deterministic combine: each block sums
+its rows, a grid barrier, then each block normalises its rows walking them
+in reverse, so part of that second read comes from L2. `gn_plan` cuts the
+rows by shape. LayerNorm reads each row for statistics and once to
+normalise, with fp32 math and one rounding on store.
 
 The plain versions compute in fp32 and round once, like the kernels, so a
 kernel-vs-plain comparison measures the kernel and not two rounding choices.
@@ -19,7 +22,7 @@ recomputed from the saved inputs (`_vjp.py`), as in the JAX package.
 from __future__ import annotations
 
 import functools
-import math
+from typing import NamedTuple
 
 import torch
 
@@ -27,8 +30,9 @@ from instancediffusion_tpu_torch.kernels import LAUNCHES
 from instancediffusion_tpu_torch.kernels import _build
 from instancediffusion_tpu_torch.kernels._vjp import plain_vjp
 
-_TARGET_BLOCKS = 4 * 132  # a few waves of blocks on the H100's 132 SMs
 _MAX_GROUPS = 64
+GN_MAX_THREADS = 320  # one thread per 8-channel vector of a row: C <= 2560
+GN_COOP_BLOCKS_PER_SM = 4  # kCoopBlocksPerSM in csrc/norms.cu: all blocks resident
 
 
 def group_norm_plain(x, scale, bias, num_groups=32, eps=1e-5, act="none"):
@@ -53,10 +57,35 @@ def layer_norm_plain(x, scale, bias, eps=1e-5):
     return y.to(x.dtype)
 
 
-def _split(rows: int, blocks_per_sample: int, cap: int) -> tuple[int, int]:
-    """(number of row chunks, rows per chunk) for one sample."""
-    per = max(1, min(math.ceil(rows / max(1, blocks_per_sample)), cap))
-    return math.ceil(rows / per), per
+class GnPlan(NamedTuple):
+    """How `fused_group_norm` covers one (B, N, C) call: each sample's rows
+    in `splits` chunks, chunk i holding rows [i * rows_per, min(N, (i + 1) *
+    rows_per)); threads per block; dynamic shared memory bytes."""
+    splits: int
+    rows_per: int
+    threads: int
+    smem: int
+
+
+def gn_plan(b: int, n: int, c: int, sm_count: int) -> GnPlan:
+    """Grid and shared memory of one GroupNorm call: one thread per 8-channel
+    vector of a row times the rows a block takes at once, and each sample's
+    rows split over at most GN_COOP_BLOCKS_PER_SM blocks per SM in all, so
+    the whole grid is resident for its barrier."""
+    if c % 8 or c // 8 > GN_MAX_THREADS:
+        raise ValueError(f"gn_plan: C={c} must be a multiple of 8 <= {8 * GN_MAX_THREADS}")
+    lanes = c // 8
+    threads = lanes * max(1, 256 // lanes)
+    total = sm_count * GN_COOP_BLOCKS_PER_SM
+    if b > total:
+        raise ValueError(f"gn_plan: batch {b} exceeds the {total} co-resident blocks")
+    rows_per = -(-n // max(1, total // b))
+    return GnPlan(-(-n // rows_per), rows_per, threads, threads * 8 * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_affine(name, x, scale, bias):
@@ -79,30 +108,28 @@ def fused_group_norm(x, scale, bias, num_groups=32, eps=1e-5, act="none"):
 def _group_norm_kernel(x, scale, bias, num_groups, eps, act):
     b, n, c = x.shape
     _build.require_cuda("fused_group_norm", x)
-    if c % num_groups or c % 2 or num_groups > _MAX_GROUPS:
+    if c % num_groups or c % 8 or num_groups > _MAX_GROUPS:
         raise ValueError(
-            f"fused_group_norm: C={c} must be even and divisible by "
+            f"fused_group_norm: C={c} must be a multiple of 8 and divisible by "
             f"G={num_groups} <= {_MAX_GROUPS}"
         )
     if act not in ("none", "silu"):
         raise ValueError(f"fused_group_norm: act={act!r}")
     x = x.contiguous()
-    blocks = math.ceil(_TARGET_BLOCKS / b)
-    # per-thread fp32 partial sums cover at most 512 elements
-    lanes = min(c, 256)
-    stat_splits, stat_rows = _split(n, blocks, 512 * (256 // lanes))
-    apply_chunks, apply_rows = _split(n, 2 * blocks, n)
-    scale32 = scale.to(device=x.device, dtype=torch.float32).contiguous()
-    bias32 = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    partial = torch.empty((b, stat_splits, 2, num_groups), dtype=torch.float64,
+    if scale.dtype != bias.dtype or scale.dtype not in (torch.bfloat16, torch.float32):
+        scale, bias = scale.float(), bias.float()
+    scale = scale.to(x.device).contiguous()
+    bias = bias.to(x.device).contiguous()
+    plan = gn_plan(b, n, c, _sm_count(x.device.index))
+    partial = torch.empty((b, plan.splits, 2, num_groups), dtype=torch.float64,
                           device=x.device)
     y = torch.empty_like(x)
     lib = _build.lib()
     with torch.cuda.device(x.device):
         err = lib.idt_group_norm(
-            x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), y.data_ptr(),
-            partial.data_ptr(), b, n, c, num_groups, stat_splits, stat_rows,
-            apply_chunks, apply_rows, float(eps), int(act == "silu"),
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), partial.data_ptr(),
+            b, n, c, num_groups, plan.splits, plan.rows_per, plan.threads, plan.smem,
+            float(eps), int(act == "silu"), int(scale.dtype == torch.float32),
             _build.stream_of(x),
         )
     _build.check(err, "fused_group_norm")

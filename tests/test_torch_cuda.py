@@ -250,6 +250,106 @@ def test_kernels_reject_what_they_do_not_take(dev):
 
 
 # ---------------------------------------------------------------------------
+# the redesigned forward attention (TMA, wgmma) and GroupNorm kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["self", "fuser", "fuser_kv_len", "labeled", "packed"])
+def test_flash_forward_at_main_batch_on_card(dev, case):
+    """K1 / K1-L / K2 at the UNet's B=16: ds1 self, the 4280-key fuser
+    (unpadded, and pre-padded to 4608 with kv_len), the labeled fuser (META-
+    like boxes on half the batch) and the packed ds2 fuser."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    b = 16
+    if case == "packed":
+        q, k, v = _rnd(g, dev, b, 1024, 640), _rnd(g, dev, b, 1208, 640), _rnd(g, dev, b, 1208, 640)
+        kern = lambda: fa.flash_attention_packed(q, k, v, 8)
+        ref = sdpa_xla(_heads(q, 8), _heads(k, 8), _heads(v, 8)).transpose(1, 2).reshape(b, 1024, 640)
+    else:
+        m = {"self": 4096, "fuser": 4280, "fuser_kv_len": 4608, "labeled": 4280}[case]
+        kv = 4280 if case == "fuser_kv_len" else m
+        q, k, v = (_heads(_rnd(g, dev, b, s, 320), 8) for s in (4096, m, m))
+        labels = mask = None
+        if case == "labeled":
+            bits, open_ = _box_labels(dev, 64)
+            labels = (bits.repeat_interleave(8, 0), open_.repeat_interleave(8, 0))
+            mask = labels_to_dense(*labels)[:, :, :4096, :kv]
+        kern = lambda: fa.flash_attention(q, k, v, labels=labels, kv_len=kv)
+        ref = sdpa_xla(q, k[:, :, :kv], v[:, :, :kv], mask=mask)
+    kernels.reset_launch_counts()
+    out = kern()
+    torch.cuda.synchronize()
+    assert sum(kernels.LAUNCHES.values()) == 1
+    assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max() <= REL_TOL * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 16, 24, 40, 64, 80, 128])
+def test_flash_forward_head_dims_on_card(dev, c):
+    """Every head-dim class the kernel takes (one or two 64-column atoms, a
+    depth padded to 16), on ragged lengths (N and kv_len off the 128-row
+    tiles, a single key tile), with and without log-sum-exp."""
+    g = torch.Generator(device=dev).manual_seed(c)
+    q = _heads(_rnd(g, dev, 2, 200, 3 * c), 3)
+    k, v = (_heads(_rnd(g, dev, 2, 333, 3 * c), 3) for _ in range(2))
+    for m in (333, 77):
+        out = fa.flash_attention(q, k, v, kv_len=m)
+        ref = sdpa_xla(q, k[:, :, :m], v[:, :, :m])
+        assert (out.float() - ref.float()).abs().max() <= REL_TOL * ref.float().abs().max()
+    out, lse = fa.flash_attention_fwd_lse(q, k, v)
+    pout, plse = fa.flash_attention_fwd_lse_plain(q, k, v)
+    assert (out.float() - pout.float()).abs().max() <= REL_TOL * pout.float().abs().max()
+    assert (lse - plse).abs().max() <= LSE_ATOL
+
+
+@pytest.mark.cuda
+def test_labeled_fully_masked_rows_on_card(dev):
+    """q rows 128..255 see 128 keys, none open, none sharing their instance
+    bit and none their own position: output 0 and lse -inf, not NaN, on the
+    inference and the training forward; the rows before are attended."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = _heads(_rnd(g, dev, 2, 256, 80), 2)
+    k, v = (_heads(_rnd(g, dev, 2, 128, 80), 2) for _ in range(2))
+    pos = torch.arange(256, device=dev)
+    bits = torch.where(pos < 128, 1, 4).int().expand(2, 256).contiguous()
+    open_ = torch.zeros(2, 256, dtype=torch.int32, device=dev)
+    out = fa.flash_attention(q, k, v, labels=(bits, open_))
+    out2, lse = fa.flash_attention_fwd_lse(q, k, v, (bits, open_))
+    torch.cuda.synchronize()
+    for o in (out, out2):
+        assert torch.isfinite(o.float()).all()
+        assert not o[:, :, 128:].any() and o[:, :, :128].abs().amax() > 0
+    assert bool((lse[:, :, 128:] == -float("inf")).all()) and torch.isfinite(lse[:, :, :128]).all()
+    pout, plse = fa.flash_attention_fwd_lse_plain(q, k, v, (bits, open_))
+    assert (out2.float() - pout.float()).abs().max() <= REL_TOL * pout.float().abs().max()
+    assert torch.equal(torch.isinf(lse), torch.isinf(plse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 4096, 320), (16, 4096, 640), (16, 64, 2560),
+                                   (16, 1024, 1920), (8, 262144, 128), (2, 7, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_group_norm_main_shapes_on_card(dev, shape):
+    """K3 at the ds1 (320 and 640 channels), ds8 and ds2 (1920) rows, the
+    VAE decoder's largest rows and a sample with fewer rows than blocks,
+    with the affine in bf16 (as the modules keep it) and in fp32."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    b, n, c = shape
+    x = _rnd(g, dev, b, n, c, std=3.0) + 0.5
+    for dtype in (torch.bfloat16, torch.float32):
+        sc = torch.randn(c, generator=g, device=dev).to(dtype)
+        bi = torch.randn(c, generator=g, device=dev).to(dtype)
+        kernels.reset_launch_counts()
+        y = norms.fused_group_norm(x, sc, bi, 32, 1e-6, "silu")
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == {"fused_group_norm": 1}
+        ref = norms.group_norm_plain(x, sc, bi, 32, 1e-6, "silu")
+        assert (y.float() - ref.float()).abs().max() <= REL_TOL * ref.float().abs().max()
+
+
+# ---------------------------------------------------------------------------
 # training kernels and gradients
 # ---------------------------------------------------------------------------
 # bf16 gradients: ds and p are rounded to bf16 before their products, so

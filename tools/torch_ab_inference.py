@@ -1,16 +1,22 @@
-"""Time the PyTorch port's inference kernels and UNet forward from one
-checkout, for parent-against-change comparisons inside one chip call.
+"""Time the PyTorch port's attention and GroupNorm kernels and its UNet
+forward from one checkout, for parent-against-change comparisons inside one
+chip call.
 
     python3 tools/torch_ab_inference.py --root DIR [--tag NAME]
 
 Imports `instancediffusion_tpu_torch` and `chip_smoke` from DIR (the
-kernels build into DIR/build/), then times on one CUDA card: the split-heads
-flash kernel at (2,8,4096,40) self and over 4280 fuser keys, its labeled
-instantiation over 4280 keys with META's box labels, the packed kernel at
-(2,1024,8*80) self (each the mean of 50 launches after 10 warm-up
-launches, CUDA events), and the full-width B=16 gate-1 UNet forward on
-densified random weights (median of 10). Prints one JSON line. Run it as
-parent, change, change, parent in one command. Imports no JAX.
+kernels build into DIR/build/), then times on one CUDA card, each by device
+time (the durations of every kernel that 20 back-to-back calls launch, from
+torch.profiler, per call): the split-heads flash kernel at the UNet's B=16
+(ds1 self, the 4280-key fuser, 4608 keys with kv_len 4280, and labeled with
+META's boxes on the 8 conditional rows; SDPA on the same self and fuser
+views as a yardstick), the packed kernel at B=16 (ds2
+self and the 1208-key fuser), the training forward with log-sum-exp at B=4
+(ds1 and ds2, self and fuser), GroupNorm at every shape of the B=16 UNet
+forward and of the VAE decoder at B=8; then the full-width B=16 gate-1 UNet
+forward on densified random weights (median of 10, CUDA events). Prints one
+JSON line. Run it as parent, change, change, parent in one command. Imports
+no JAX.
 """
 
 from __future__ import annotations
@@ -20,17 +26,37 @@ import json
 import os
 import sys
 
+REPS = 20
+# (rows, C, eps, act) of the B=16 gate-1 UNet forward and the VAE decoder at B=8
+GN_UNET_B16 = ((4096, 320, 1e-5, "silu"), (4096, 320, 1e-6, "none"), (4096, 640, 1e-5, "silu"),
+               (4096, 960, 1e-5, "silu"), (1024, 320, 1e-5, "silu"), (1024, 640, 1e-5, "silu"),
+               (1024, 640, 1e-6, "none"), (1024, 960, 1e-5, "silu"), (1024, 1280, 1e-5, "silu"),
+               (1024, 1920, 1e-5, "silu"), (256, 640, 1e-5, "silu"), (256, 1280, 1e-5, "silu"),
+               (256, 1280, 1e-6, "none"), (256, 1920, 1e-5, "silu"), (256, 2560, 1e-5, "silu"),
+               (64, 1280, 1e-5, "silu"), (64, 1280, 1e-6, "none"), (64, 2560, 1e-5, "silu"))
+GN_VAE_B8 = ((4096, 512, 1e-6, "silu"), (4096, 512, 1e-6, "none"), (16384, 512, 1e-6, "silu"),
+             (65536, 256, 1e-6, "silu"), (65536, 512, 1e-6, "silu"), (262144, 128, 1e-6, "silu"),
+             (262144, 256, 1e-6, "silu"))
 
-def mean_ms(torch, fn, warm: int = 10, reps: int = 50) -> float:
-    for _ in range(warm):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+
+def device_ms(torch, fn, reps: int = REPS) -> float:
+    """Summed device durations of the kernels `reps` calls launch, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # CUPTI now and then delivers no kernel record: measure again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False))
+        if us > 0:
+            return us / 1e3 / reps
+    raise RuntimeError("device_ms: the profiler saw no device time")
 
 
 def main() -> int:
@@ -45,6 +71,7 @@ def main() -> int:
     import chip_smoke
     from instancediffusion_tpu_torch.config import Config, apply_test_preset
     from instancediffusion_tpu_torch.kernels import flash_attention as fa
+    from instancediffusion_tpu_torch.kernels import norms
     from instancediffusion_tpu_torch.models import unet as unet_lib
 
     if not torch.cuda.is_available():
@@ -53,15 +80,39 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     rnd = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()
     heads = lambda t, c: t.reshape(t.shape[0], t.shape[1], 8, c).transpose(1, 2)
-    q, k = heads(rnd(2, 4096, 320), 40), heads(rnd(2, 4280, 320), 40)
-    labels = chip_smoke.meta_labels(torch, dev, 64)
-    p = rnd(2, 1024, 640)
     out = {"tag": args.tag or args.root, "card": chip_smoke.card_line()}
     with torch.inference_mode():
-        out["k1_self_ms"] = mean_ms(torch, lambda: fa.flash_attention(q, q, q))
-        out["k1_fuser_ms"] = mean_ms(torch, lambda: fa.flash_attention(q, k, k))
-        out["k1l_fuser_ms"] = mean_ms(torch, lambda: fa.flash_attention(q, k, k, labels=labels))
-        out["k2_self_ms"] = mean_ms(torch, lambda: fa.flash_attention_packed(p, p, p, 8))
+        q, k = heads(rnd(16, 4096, 320), 40), heads(rnd(16, 4608, 320), 40)
+        bits, open_ = chip_smoke.meta_labels(torch, dev, 64)
+        labels = (bits.repeat_interleave(8, 0), open_.repeat_interleave(8, 0))
+        out["k1_b16_self_ms"] = device_ms(torch, lambda: fa.flash_attention(q, q, q))
+        out["k1_b16_fuser_ms"] = device_ms(
+            torch, lambda: fa.flash_attention(q, k[:, :, :4280], k[:, :, :4280]))
+        out["k1_b16_fuser_kv_len_ms"] = device_ms(
+            torch, lambda: fa.flash_attention(q, k, k, kv_len=4280))
+        out["k1l_b16_fuser_ms"] = device_ms(
+            torch, lambda: fa.flash_attention(q, k[:, :, :4280], k[:, :, :4280], labels=labels))
+        # the yardstick, PyTorch's SDPA on the same head views (never called by the port)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        out["sdpa_b16_self_ms"] = device_ms(torch, lambda: sdpa(q, q, q))
+        out["sdpa_b16_fuser_ms"] = device_ms(
+            torch, lambda: sdpa(q, k[:, :, :4280], k[:, :, :4280]))
+        p, pk = rnd(16, 1024, 640), rnd(16, 1208, 640)
+        out["k2_b16_self_ms"] = device_ms(torch, lambda: fa.flash_attention_packed(p, p, p, 8))
+        out["k2_b16_fuser_ms"] = device_ms(torch, lambda: fa.flash_attention_packed(p, pk, pk, 8))
+        for name, n, m, c in (("ds1_self", 4096, 4096, 40), ("ds1_fuser", 4096, 4280, 40),
+                              ("ds2_self", 1024, 1024, 80), ("ds2_fuser", 1024, 1208, 80)):
+            tq, tk = heads(rnd(4, n, 8 * c), c), heads(rnd(4, m, 8 * c), c)
+            out[f"k6_b4_{name}_ms"] = device_ms(
+                torch, lambda tq=tq, tk=tk: fa.flash_attention_fwd_lse(tq, tk, tk))
+        for b, shapes in ((16, GN_UNET_B16), (8, GN_VAE_B8)):
+            for n, c, eps, act in shapes:
+                x = (torch.randn((b, n, c), generator=g, device=dev) * 3 + 0.5).bfloat16()
+                sc, bi = rnd(c), rnd(c)
+                out[f"k3_{b}x{n}x{c}_{act}_ms"] = device_ms(
+                    torch, lambda x=x, sc=sc, bi=bi, e=eps, a=act:
+                    norms.fused_group_norm(x, sc, bi, 32, e, a))
+                del x
 
         cfg = apply_test_preset(Config(), "box").model
         gen = torch.Generator(device=dev).manual_seed(0)

@@ -26,11 +26,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # (category, substrings of the kernel name), first match wins
 CATEGORIES = (
-    ("K6 flash forward + lse", ("flash_fwd_kernel",)),
+    ("K6 flash forward + lse", ("flash_fwd_sm90<",)),
     ("dq kernel", ("flash_bwd_dq",)),
     ("dk/dv kernel", ("flash_bwd_dkv",)),
     ("GEGLU kernel + reduce", ("geglu_ff_kernel", "ff_reduce_kernel")),
-    ("GroupNorm kernel", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("GroupNorm kernel", ("::gn_kernel<",)),
     ("LayerNorm kernel", ("ln_kernel",)),
     ("optimizer (foreach / multi-tensor)", ("multi_tensor", "foreach")),
     ("convolution (cuDNN)", ("conv", "cudnn", "implicit_gemm", "wgrad", "dgrad", "fprop")),
