@@ -204,6 +204,14 @@ GN_UNET_B16 = ((4096, 320, 1e-5, "silu"), (4096, 320, 1e-6, "none"), (4096, 640,
                (1024, 1920, 1e-5, "silu"), (256, 640, 1e-5, "silu"), (256, 1280, 1e-5, "silu"),
                (256, 1280, 1e-6, "none"), (256, 1920, 1e-5, "silu"), (256, 2560, 1e-5, "silu"),
                (64, 1280, 1e-5, "silu"), (64, 1280, 1e-6, "none"), (64, 2560, 1e-5, "silu"))
+# LayerNorm rows (rows per sample, C) of the B=16 gate-1 UNet forward: the
+# transformer blocks' and the fusers' [x | objs] rows at ds1, ds2, ds4
+LN_UNET_B16 = ((4096, 320), (4280, 320), (1024, 640), (1208, 640), (256, 1280), (440, 1280))
+# the feed-forwards of that forward: ds1 and ds2 (C=640, clusters of two
+# blocks) fit the fused kernel; ds4 and ds8 (C=1280) go to the unfused route
+# (`ff_fits`): 10 + 10 and 10 + 2
+FF_KERNEL = ((4096, 320), (1024, 640))
+FF_UNFUSED = ((256, 1280), (64, 1280))
 GN_VAE_B8 = ((4096, 512, 1e-6, "silu"), (4096, 512, 1e-6, "none"), (16384, 512, 1e-6, "silu"),
              (65536, 256, 1e-6, "silu"), (65536, 512, 1e-6, "silu"), (262144, 128, 1e-6, "silu"),
              (262144, 256, 1e-6, "silu"))
@@ -214,6 +222,15 @@ GN_VAE_B8 = ((4096, 512, 1e-6, "silu"), (4096, 512, 1e-6, "none"), (16384, 512, 
 # in the kernels phase only
 PLAIN_PATH = ("flash_attention", "flash_attention_packed", "fused_group_norm",
               "fused_layer_norm", "fused_ff_geglu")
+# the feed-forward switch (`ff_fits`): a gate-1 forward runs 20 feed-forwards
+# in the fused kernel (10 at ds1, 10 at ds2) and 12 on the unfused route (10
+# at ds4 and 2 at ds8, C=1280); a gate-0 forward skips the fusers' and runs 10
+# and 6. Per PLMS-50 request at alpha 0.75 (38 gate-1 + 13 gate-0 forwards),
+# per DPM-20 batch (15 + 5) and per training step (the forward twice, remat)
+FF_ROUTE = "ff_geglu_unfused"
+FF_PER_REQUEST = {"fused_ff_geglu": 38 * 20 + 13 * 10, FF_ROUTE: 38 * 12 + 13 * 6}
+FF_PER_BATCH = {"fused_ff_geglu": 15 * 20 + 5 * 10, FF_ROUTE: 15 * 12 + 5 * 6}
+FF_PER_STEP = {"fused_ff_geglu": 2 * 20, FF_ROUTE: 2 * 12}
 MIS_PATH = PLAIN_PATH + ("flash_attention_labeled",)
 TRAIN_PATH = tuple(TRAIN_LAUNCHES) + ("fused_group_norm", "fused_layer_norm", "fused_ff_geglu")
 MASKED_TRAIN_PATH = tuple(MASKED_LAUNCHES)
@@ -393,7 +410,7 @@ def _cases(torch, dev):
     from instancediffusion_tpu_torch.kernels import flash_attention as fa
     from instancediffusion_tpu_torch.kernels import geglu_ff as ff
     from instancediffusion_tpu_torch.kernels import norms
-    from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_xla
+    from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_fp32
 
     g = torch.Generator(device=dev).manual_seed(0)
     bf, fp = torch.bfloat16, torch.float32
@@ -422,7 +439,7 @@ def _cases(torch, dev):
         cases.append(case(
             "flash_attention", label,
             lambda qh=qh, kh=kh, vh=vh, kv=kv_len: fa.flash_attention(qh, kh, vh, kv_len=kv),
-            lambda qh=qh, kh=kh, vh=vh, mm=mm: sdpa_xla(qh, kh[:, :, :mm], vh[:, :, :mm]),
+            lambda qh=qh, kh=kh, vh=vh, mm=mm: sdpa_fp32(qh, kh[:, :, :mm], vh[:, :, :mm]),
             BF16_REL_TOL, _attn_work("fwd", 2, 8, n, mm, 40),
             lambda qh=qh, kh=kh, vh=vh, mm=mm: sdpa(qh, kh[:, :, :mm], vh[:, :, :mm])))
     # the masked ds1 fuser: labels of META's boxes at 64x64 (one sample
@@ -437,7 +454,7 @@ def _cases(torch, dev):
             "flash_attention_labeled", label,
             lambda qh=qh, kh=kh, vh=vh, kv=kv_len: fa.flash_attention(
                 qh, kh, vh, labels=labels64, kv_len=kv),
-            lambda qh=qh, kh=kh, vh=vh, kv=kv_len, mask=mask: sdpa_xla(
+            lambda qh=qh, kh=kh, vh=vh, kv=kv_len, mask=mask: sdpa_fp32(
                 qh, kh[:, :, :kv], vh[:, :, :kv], mask=mask),
             BF16_REL_TOL, _attn_work("fwd", 2, 8, 4096, kv_len, 40, mask),
             lambda qh=qh, kh=kh, vh=vh, kv=kv_len, mask=mask: sdpa(
@@ -450,7 +467,7 @@ def _cases(torch, dev):
         mm = m if kv_len is None else kv_len
 
         def plain(q=q, k=k, v=v, mm=mm):
-            out = sdpa_xla(heads80(q), heads80(k[:, :mm]), heads80(v[:, :mm]))
+            out = sdpa_fp32(heads80(q), heads80(k[:, :mm]), heads80(v[:, :mm]))
             return out.transpose(1, 2).reshape(2, q.shape[1], 640)
 
         cases.append(case(
@@ -466,7 +483,7 @@ def _cases(torch, dev):
     mask32 = labels_to_dense(*labels32)[:, :, :1024, :1208]
 
     def plain_packed_labeled(q=q, k=k, v=v):
-        out = sdpa_xla(heads80(q), heads80(k), heads80(v), mask=mask32)
+        out = sdpa_fp32(heads80(q), heads80(k), heads80(v), mask=mask32)
         return out.transpose(1, 2).reshape(2, 1024, 640)
 
     cases.append(case(
@@ -509,24 +526,41 @@ def _cases(torch, dev):
             lambda x=x, sc=sc, bi=bi, e=eps: F.layer_norm(x, (x.shape[-1],), sc.to(x.dtype),
                                                           bi.to(x.dtype), e),
             PEAK_FP32))
-    # GEGLU FF at the three transformer widths (ds8 mid block too); no one
-    # PyTorch call computes it
-    for n, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
-        inner = 4 * c
-        x = randn(2, n, c)
-        w1, b1 = randn(2 * inner, c, std=c ** -0.5), randn(2 * inner, std=0.1)
-        w2, b2 = randn(c, inner, std=inner ** -0.5), randn(c, std=0.1)
-        cases.append(case(
-            "fused_ff_geglu", f"({n},{c}) inner={inner}",
-            lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ff.fused_ff_geglu(x, w1, b1, w2, b2),
-            lambda x=x, w1=w1, b1=b1, w2=w2, b2=b2: ff.ff_geglu_plain(x, w1, b1, w2, b2),
-            BF16_REL_TOL,
-            (6 * 2 * n * c * inner, 2 * (2 * 2 * n * c + 3 * inner * c) + 4 * (2 * inner + c)),
-            None))
+    # GEGLU FF at the widths `ff_fits` gives the kernel (ds1, ds2; the C=1280
+    # levels are held against the plain version in the routes phase); no one
+    # PyTorch call computes it, so the library time is the unfused route's
+    # three calls (two F.linear and a * gelu(g) in bf16), named so in its line
+    for n, c in FF_KERNEL:
+        cases.append(_ff_case(randn, case, 2, n, c))
     cases += _head_layout_cases(torch, randn, case)
     cases += _train_cases(torch, dev, randn, case, labels64)
     cases += _main_cases(torch, dev, randn, case)
     return cases
+
+
+def _ff_args(randn, m, c):
+    inner = 4 * c
+    return (randn(m, c), randn(2 * inner, c, std=c ** -0.5), randn(2 * inner, std=0.1),
+            randn(c, inner, std=inner ** -0.5), randn(c, std=0.1))
+
+
+def _ff_work(m, c):
+    """FLOPs and bytes of one feed-forward call: both products; x read and
+    out written once, both weights and both biases (bf16) read once."""
+    inner = 4 * c
+    return 6 * m * c * inner, 2 * (2 * m * c + 3 * inner * c) + 2 * (2 * inner + c)
+
+
+def _ff_case(randn, case, b, n, c):
+    from instancediffusion_tpu_torch.kernels import geglu_ff as ff
+
+    args = _ff_args(randn, b * n, c)
+    args = (args[0].reshape(b, n, c),) + args[1:]
+    cs = case("fused_ff_geglu", f"({b},{n},{c}) inner={4 * c}",
+              lambda: ff.fused_ff_geglu(*args), lambda: ff.ff_geglu_plain(*args),
+              BF16_REL_TOL, _ff_work(b * n, c), lambda: ff.ff_geglu_unfused(*args))
+    cs["library_name"] = "unfused route: F.linear, a*gelu(g), F.linear in bf16"
+    return cs
 
 
 def _main_cases(torch, dev, randn, case):
@@ -540,7 +574,7 @@ def _main_cases(torch, dev, randn, case):
 
     from instancediffusion_tpu_torch.kernels import flash_attention as fa
     from instancediffusion_tpu_torch.kernels import norms
-    from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_xla
+    from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_fp32
 
     sdpa = F.scaled_dot_product_attention
     b = FUSED_UNET_B
@@ -553,7 +587,7 @@ def _main_cases(torch, dev, randn, case):
         cases.append(case(
             "flash_attention", f"B={b} {label}",
             lambda qh=qh, kh=kh, vh=vh, kv=kv_len: fa.flash_attention(qh, kh, vh, kv_len=kv),
-            lambda qh=qh, kh=kh, vh=vh, mm=mm: sdpa_xla(qh, kh[:, :, :mm], vh[:, :, :mm]),
+            lambda qh=qh, kh=kh, vh=vh, mm=mm: sdpa_fp32(qh, kh[:, :, :mm], vh[:, :, :mm]),
             BF16_REL_TOL, _attn_work("fwd", b, 8, 4096, mm, 40),
             lambda qh=qh, kh=kh, vh=vh, mm=mm: sdpa(qh, kh[:, :, :mm], vh[:, :, :mm])))
     # META's labels on the 8 conditional rows, open labels on the 8 unconditional
@@ -564,14 +598,14 @@ def _main_cases(torch, dev, randn, case):
     cases.append(case(
         "flash_attention_labeled", f"B={b} fuser 4096x4280 labeled",
         lambda: fa.flash_attention(qh, kh, vh, labels=labels),
-        lambda: sdpa_xla(qh, kh, vh, mask=mask), BF16_REL_TOL,
+        lambda: sdpa_fp32(qh, kh, vh, mask=mask), BF16_REL_TOL,
         _attn_work("fwd", b, 8, 4096, 4280, 40, mask),
         lambda: sdpa(qh, kh, vh, attn_mask=mask)))
     for label, m in (("self 1024x1024", 1024), ("fuser 1024x1208", 1208)):
         q, k, v = randn(b, 1024, 640), randn(b, m, 640), randn(b, m, 640)
 
         def plain(q=q, k=k, v=v):
-            out = sdpa_xla(heads(q, 80), heads(k, 80), heads(v, 80))
+            out = sdpa_fp32(heads(q, 80), heads(k, 80), heads(v, 80))
             return out.transpose(1, 2).reshape(b, 1024, 640)
 
         cases.append(case(
@@ -607,6 +641,17 @@ def _main_cases(torch, dev, randn, case):
                 lambda x=x, sc=sc, bi=bi, e=eps, a=act: norms.fused_group_norm(x, sc, bi, 32, e, a),
                 lambda x=x, sc=sc, bi=bi, e=eps, a=act: norms.group_norm_plain(x, sc, bi, 32, e, a),
                 BF16_REL_TOL, (8 * bb * n * c, 2 * 2 * bb * n * c + 4 * c), lib, PEAK_FP32))
+    for n, c in FF_KERNEL:
+        cases.append(_ff_case(randn, case, b, n, c))
+    for n, c in LN_UNET_B16:
+        x = (randn(b, n, c, std=2.0) + 0.3).to(torch.bfloat16)
+        sc, bi = randn(c), randn(c)  # bf16, as the modules keep them
+        cases.append(case(
+            "fused_layer_norm", f"({b},{n},{c}) eps=1e-05 bfloat16",
+            lambda x=x, sc=sc, bi=bi: norms.fused_layer_norm(x, sc, bi, 1e-5),
+            lambda x=x, sc=sc, bi=bi: norms.layer_norm_plain(x, sc, bi, 1e-5),
+            BF16_REL_TOL, (8 * b * n * c, 2 * 2 * b * n * c + 4 * c),
+            lambda x=x, sc=sc, bi=bi: F.layer_norm(x, (x.shape[-1],), sc, bi, 1e-5), PEAK_FP32))
     for cs in cases:
         cs["main"] = True
     return cases
@@ -761,6 +806,8 @@ def phase_kernels(torch, dev) -> dict:
                 extra = f" tensor_map_encode_us={sum(enc) / len(enc):.2f} (host, per call)"
             ratio = "" if lib_ms is None else f" kernel/library={dev_ms / lib_ms:.3f}"
             lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+            if "library_name" in cs:
+                extra += f" (library = {cs['library_name']})"
             log(f"kernels (main path): {name} {label}: {verdict} device_ms={dev_ms:.4f} "
                 f"events_ms={ev_ms:.4f} wrapper_ms={wrap_ms:.4f} library_device_ms={lib}"
                 f"{ratio} bound_ms={bound_ms:.4f} ({bound_by}){exp_txt}{extra}")
@@ -778,6 +825,8 @@ def phase_kernels(torch, dev) -> dict:
                 extra = (f" sdpa_fwd_bwd_ms={fwd_bwd:.4f} sdpa_bwd_ms={fwd_bwd - lib_ms:.4f} "
                          "(derived: fwd_bwd - library)")
             lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+            if "library_name" in cs:
+                extra += f" (library = {cs['library_name']})"
             log(f"kernels: {name} {label}: {verdict} kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} library_ms={lib} bound_ms={bound_ms:.4f} "
                 f"({bound_by}){exp_txt} flops={flops:.4g} bytes={nbytes:.4g}{extra}")
@@ -787,6 +836,89 @@ def phase_kernels(torch, dev) -> dict:
     if failures:
         raise RuntimeError("kernel checks failed:\n  " + "\n  ".join(failures))
     return results
+
+
+def phase_routes(torch, dev) -> None:
+    """What the switches by shape and dtype send where, checked on the card:
+    the C=1280 feed-forwards at batch 2 and 16 (the unfused route, counted,
+    no kernel launch, against the fp32 plain version, with the route's device
+    time beside its bound); GroupNorm at the batch of `generate` at mis=0.36 with 30
+    instances and 9 images (558 rows, above the resident blocks: several
+    cooperative launches); a tiny fp32 `generate` (fp32 activations take the
+    plain versions, LayerNorm's kernel keeps its fp32 rows) against
+    `plain_kernels()`."""
+    import numpy as np
+
+    from instancediffusion_tpu_torch import kernels
+    from instancediffusion_tpu_torch.config import load_config
+    from instancediffusion_tpu_torch.kernels import geglu_ff as ff
+    from instancediffusion_tpu_torch.kernels import norms
+    from instancediffusion_tpu_torch.nn.core import plain_kernels
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
+
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    for b, n, c in ((bb, n, c) for bb in (2, FUSED_UNET_B) for n, c in FF_UNFUSED):
+        args = _ff_args(randn, b * n, c)
+        kernels.reset_launch_counts()
+        out = ff.ff_geglu(*args)
+        torch.cuda.synchronize()
+        counts = (kernels.LAUNCHES.get("fused_ff_geglu", 0), kernels.ROUTES[FF_ROUTE])
+        ref = ff.ff_geglu_plain(*args).float()
+        rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+        # the route also rounds a, g and the first product to bf16
+        if counts != (0, 1) or not rel <= 2 * BF16_REL_TOL:
+            raise RuntimeError(f"routes: ff_geglu ({b},{n},{c}): (kernel, unfused) calls "
+                               f"{counts}, rel err {rel:.3g}")
+        bound_ms, bound_by = _bound(*_ff_work(b * n, c))
+        log(f"routes: ff_geglu ({b},{n},{c}) inner={4 * c}: unfused by ff_fits, rel={rel:.3g} "
+            f"tol={2 * BF16_REL_TOL:g} ok device_ms={device_ms(torch, lambda: ff.ff_geglu(*args)):.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by})")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for bb, n, c in ((558, 64, 1280), (558, 4096, 320)):
+        x = randn(bb, n, c, std=3.0) + 0.5
+        sc, bi = randn(c), randn(c)
+        want = len(norms.gn_plan(bb, n, c, sms).launches(bb))
+        kernels.reset_launch_counts()
+        out = norms.fused_group_norm(x, sc, bi, 32, 1e-5, "silu")
+        torch.cuda.synchronize()
+        got = kernels.LAUNCHES.get("fused_group_norm", 0)
+        err, rel, ok = _close(out, norms.group_norm_plain(x, sc, bi, 32, 1e-5, "silu"),
+                              BF16_REL_TOL)
+        if not ok or got != want or want < 2:
+            raise RuntimeError(f"routes: fused_group_norm ({bb},{n},{c}): {got} launches "
+                               f"(planned {want}), rel err {rel:.3g}")
+        log(f"routes: fused_group_norm ({bb},{n},{c}) silu: {got} cooperative launches, "
+            f"rel={rel:.3g} tol={BF16_REL_TOL:g} ok")
+        del x, out
+    gcfg = dict(in_dim=64, out_dim=64, mid_dim=64, fourier_freqs=4, fourier_freqs_polygons=4,
+                n_scribble_points=4, n_polygon_points=8, seg_channels=4, seg_resize_input=64,
+                convnext_depths=(1, 1), convnext_dims=(32, 64), convnext_feature_dim=4096)
+    cfg = load_config(overrides=dict(
+        model=dict(image_size=32, model_channels=64, num_heads=8, context_dim=64, max_objs=4,
+                   grounding_tokenizer=gcfg, channel_mult=(1, 2), num_res_blocks=1,
+                   attention_resolutions=(1, 2)),
+        autoencoder=dict(ch=32, ch_mult=(1, 2), resolution=64),
+        text_encoder=dict(vocab_size=512, hidden_size=64, intermediate_size=128,
+                          num_hidden_layers=1, num_attention_heads=4)))
+    pipe = InstanceDiffusionPipeline.random_init(cfg, seed=0, device=dev, dtype=torch.float32)
+    densify_(pipe.unet, 1)
+    meta = {"prompt": "a cat and a dog", "phrases": ["a cat", "a dog"],
+            "locations": [[0.1, 0.2, 0.5, 0.9], [0.5, 0.3, 0.9, 0.9]]}
+    kernels.reset_launch_counts()
+    imgs = pipe.generate(meta, num_images=2, steps=4, mis=0.0, seed=0)
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    with plain_kernels():
+        ref = pipe.generate(meta, num_images=2, steps=4, mis=0.0, seed=0)
+    diff = int(np.abs(imgs.astype(int) - ref.astype(int)).max())
+    if set(launched) != {"fused_layer_norm"} or diff > 1 or int(imgs.max()) == int(imgs.min()):
+        raise RuntimeError(f"routes: tiny fp32 generate launched {launched}, max uint8 diff "
+                           f"{diff} against plain_kernels()")
+    log(f"routes: tiny fp32 generate (2 images, 4 steps): launches {launched}, "
+        f"max uint8 diff {diff} against plain_kernels() (limit 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -954,6 +1086,11 @@ def phase_request(torch, pipe, card: str, name: str, meta: dict, mis: float,
         imgs = pipe.generate(meta, num_images=n_img, steps=STEPS, mis=mis, seed=seed)
         times.append(time.perf_counter() - t0)
     launches = dict(kernels.LAUNCHES)
+    ff_calls = {"fused_ff_geglu": launches.get("fused_ff_geglu", 0) / len(times),
+                FF_ROUTE: kernels.ROUTES[FF_ROUTE] / len(times)}
+    if mis == 0.0 and ff_calls != FF_PER_REQUEST:
+        raise RuntimeError(f"{name}: feed-forward calls per request {ff_calls} (expected "
+                           f"{FF_PER_REQUEST})")
     size = pipe.image_size
     if imgs.shape != (n_img, size, size, 3) or imgs.dtype != np.uint8:
         raise RuntimeError(f"{name}: images {imgs.shape} {imgs.dtype}")
@@ -966,7 +1103,7 @@ def phase_request(torch, pipe, card: str, name: str, meta: dict, mis: float,
     line = (f"{name}: generate B={n_img} steps={STEPS} PLMS mis={mis} bf16 "
             f"masked={pipe.cfg.model.use_masked_att}: warm-up {warm_s:.2f}s, requests "
             f"{', '.join(f'{t:.3f}s' for t in times)}, {s_img:.4f} s/image on {card}; "
-            f"launches {launches}")
+            f"feed-forward calls per request {ff_calls}; launches {launches}")
     return line, launches
 
 
@@ -1081,6 +1218,7 @@ def phase_serve(torch, pipe, card: str, fused: bool) -> tuple[str, dict]:
                 rounds.append((time.perf_counter() - t0, replies))
             torch.cuda.synchronize()
             launches = dict(kernels.LAUNCHES)
+            routed = kernels.ROUTES[FF_ROUTE]
             batches = server.batcher.batches - b0
             batch_s = list(server.batcher.batch_seconds)[-batches:]
             phases = ", ".join(f"{k} {v:.3f}s" for k, v in pipe.last_timings.items())
@@ -1095,8 +1233,10 @@ def phase_serve(torch, pipe, card: str, fused: bool) -> tuple[str, dict]:
     bodies = [body for _, replies in rounds for _, body in replies]
     if any(_png_size(b) != (size, size) for b in bodies) or len(set(bodies)) < 2:
         raise RuntimeError(f"{name}: replies are not distinct {size}x{size} PNGs")
-    per = {k: launches.get(k, 0) / batches for k in SERVE_LAUNCHES}
+    per = {k: launches.get(k, 0) / batches for k in (*SERVE_LAUNCHES, "fused_ff_geglu")}
+    per[FF_ROUTE] = routed / batches
     want = SERVE_LAUNCHES if fused else dict(SERVE_LAUNCHES, proj_split=0, merge_proj=0)
+    want = dict(want, **FF_PER_BATCH)
     missing = [k for k in (SERVE_PATH if fused else PLAIN_PATH) if launches.get(k, 0) <= 0]
     if per != want or missing:
         raise RuntimeError(f"{name}: {batches} batches, launches per batch {per} (expected "
@@ -1308,20 +1448,23 @@ def phase_train(torch, dev, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    routed = kernels.ROUTES[FF_ROUTE] / TRAIN_STEPS
     peak = torch.cuda.max_memory_allocated()
     per = _per_step(launches, TRAIN_PATH, TRAIN_STEPS)
     losses = [float(m["loss"]) for m in metrics]
     loss_list = ", ".join("%.4f" % x for x in losses)
     if any(m["skipped"] for m in metrics) or not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"train: non-finite losses {losses}")
-    wrong = {k: per[k] for k, n in TRAIN_LAUNCHES.items() if per[k] != n}
+    want = dict(TRAIN_LAUNCHES, fused_ff_geglu=FF_PER_STEP["fused_ff_geglu"])
+    wrong = {k: per[k] for k, n in want.items() if per[k] != n}
     missing = [k for k in TRAIN_PATH if per[k] <= 0]
-    if wrong or missing:
-        raise RuntimeError(f"train: launches per step {per} (expected {TRAIN_LAUNCHES})")
+    if wrong or missing or routed != FF_PER_STEP[FF_ROUTE]:
+        raise RuntimeError(f"train: launches per step {per}, unfused feed-forwards {routed} "
+                           f"(expected {want}, {FF_PER_STEP[FF_ROUTE]})")
     log(f"train (c): B={TRAIN_B} {TRAIN_IMAGE}px remat bf16, {TRAIN_STEPS} steps in {secs:.3f}s: "
         f"{secs / TRAIN_STEPS:.4f} s/step, {TRAIN_B * TRAIN_STEPS / secs:.3f} samples/s, "
         f"max_memory_allocated {peak / 2**30:.2f} GiB on {card}; losses "
-        f"{loss_list}; launches per step {per}")
+        f"{loss_list}; launches per step {per}, unfused feed-forwards per step {routed}")
 
     # (d) masked training: the "mask" preset with use_masked_att
     mcfg = apply_test_preset(Config(), "mask")
@@ -1376,6 +1519,7 @@ def main() -> int:
     results = phase_kernels(torch, dev)
 
     os.environ.setdefault("IDTPU_ALLOW_HASH_TOKENIZER", "1")
+    phase_routes(torch, dev)
     cfg = apply_test_preset(Config(), "box")
     t0 = time.perf_counter()
     pipe = InstanceDiffusionPipeline.random_init(cfg, seed=0, device=dev, vae_encoder=True)

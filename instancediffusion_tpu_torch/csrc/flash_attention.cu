@@ -9,39 +9,17 @@
 // The Python wrapper (kernels/flash_attention.py::tma_plan) derives each
 // operand's map: its dims (head dim first, then batch, head and row in order
 // of stride), byte strides, box and where (head, row, batch) sit among the
-// coordinates. This file encodes them with cuTensorMapEncodeTiled, reached
-// through the runtime's driver entry point (nothing new is linked), and
+// coordinates. This file encodes them with cuTensorMapEncodeTiled (tma_host.cuh) and
 // passes them to the kernel as __grid_constant__ parameters.
 #include <chrono>
 
 #include "flash_fwd_sm90.cuh"
+#include "tma_host.cuh"
 
 namespace {
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-    static EncodeTiled fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-        if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                             cudaEnableDefault, &q) != cudaSuccess)
-            return nullptr;
-#else
-        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess)
-            return nullptr;
-#endif
-        if (q != cudaDriverEntryPointSuccess) return nullptr;
-        fn = reinterpret_cast<EncodeTiled>(p);
-    }
-    return fn;
-}
+using idt_tma::EncodeTiled;
+using idt_tma::encoder;
 
 constexpr int kMapArgs = 15;  // ptr, dims[4], byte strides[3], box[4], (head, row, batch) slots
 

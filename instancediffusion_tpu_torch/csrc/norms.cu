@@ -29,9 +29,13 @@
 // the card at once, and no CTA overlaps its load with its store. Reading x
 // twice, the second time partly from L2, costs less than that.
 //
-// LayerNorm: one warp per row, two passes over the row for mean and
-// variance (the row is at most a few KB and stays in L1), fp32 math. It takes
-// bf16 rows (UNet, CLIP) and fp32 rows (ConvNeXt in the grounding tokenizer).
+// LayerNorm: one read and one write. 8, 16 or 32 lanes share a row (so a warp
+// takes up to four of the narrow rows), load it with 16-byte loads and keep
+// it in registers between the statistics (mean, then the centred sum of
+// squares, fp32, reduced by shuffles) and the normalise; the affine is read
+// as the module keeps it (bf16 or fp32). Rows of bf16 (UNet, CLIP) and fp32
+// (ConvNeXt in the grounding tokenizer); a generic three-pass loop serves
+// widths off the vector size or past 8 vectors a lane.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -221,50 +225,159 @@ cudaError_t gn_launch(const void* x, const void* scale, const void* bias, void* 
     return cudaGetLastError();
 }
 
-constexpr int kRowsPerLnBlock = kThreads / 32;
+constexpr int kLnWarps = kThreads / 32;
+constexpr int kLnVecs = 8;  // 16-byte vectors of a row one lane can hold
 
-// Pairs of adjacent channels, loaded to and stored from fp32.
-__device__ __forceinline__ float2 ln_load(const __nv_bfloat162& v) { return __bfloat1622float2(v); }
-__device__ __forceinline__ float2 ln_load(const float2& v) { return v; }
-__device__ __forceinline__ void ln_store(__nv_bfloat162* p, float a, float b) {
-    *p = __floats2bfloat162_rn(a, b);
+// One 16-byte vector of a row as fp32, and back.
+__device__ __forceinline__ void ln_unpack(const uint4& raw, float (&f)[8]) { unpack8(raw, f); }
+__device__ __forceinline__ void ln_unpack(const uint4& raw, float (&f)[4]) {
+    f[0] = __uint_as_float(raw.x);
+    f[1] = __uint_as_float(raw.y);
+    f[2] = __uint_as_float(raw.z);
+    f[3] = __uint_as_float(raw.w);
 }
-__device__ __forceinline__ void ln_store(float2* p, float a, float b) { *p = make_float2(a, b); }
+__device__ __forceinline__ uint4 ln_pack(const float (&f)[8]) { return pack8(f); }
+__device__ __forceinline__ uint4 ln_pack(const float (&f)[4]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+}
 
-// T2 is __nv_bfloat162 (bf16 activations) or float2 (fp32 activations, the
-// grounding tokenizer, which runs in fp32 like the reference's).
-template <typename T2>
-__global__ void __launch_bounds__(kThreads) ln_kernel(const T2* __restrict__ x,
-                                                      const float* __restrict__ scale,
-                                                      const float* __restrict__ bias,
-                                                      T2* __restrict__ y, long long rows, int C,
-                                                      float eps) {
-    const int lane = threadIdx.x & 31;
-    const long long row = (long long)blockIdx.x * kRowsPerLnBlock + (threadIdx.x >> 5);
-    if (row >= rows) return;
-    const int half = C / 2;
-    const T2* xr = x + row * half;
-    T2* yr = y + row * half;
-
-    float s = 0.f;
-    for (int i = lane; i < half; i += 32) {
-        const float2 f = ln_load(xr[i]);
-        s += f.x + f.y;
+// E consecutive affine values starting at p (E * sizeof(AT)-byte aligned), as
+// the module keeps them
+template <int E>
+__device__ __forceinline__ void ln_affine(const float* p, float (&f)[E]) {
+#pragma unroll
+    for (int e = 0; e < E; e += 4) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(p + e));
+        f[e] = v.x;
+        f[e + 1] = v.y;
+        f[e + 2] = v.z;
+        f[e + 3] = v.w;
     }
+}
+__device__ __forceinline__ void ln_affine(const __nv_bfloat16* p, float (&f)[8]) {
+    unpack8(__ldg(reinterpret_cast<const uint4*>(p)), f);
+}
+__device__ __forceinline__ void ln_affine(const __nv_bfloat16* p, float (&f)[4]) {
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    f[0] = lo.x;
+    f[1] = lo.y;
+    f[2] = hi.x;
+    f[3] = hi.y;
+}
+
+// sum over the `lanes` (a power of two) neighbouring lanes that share a row
+__device__ __forceinline__ float ln_group_sum(float v, int lanes) {
+    for (int off = lanes >> 1; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+}
+
+// The row lives in registers between the statistics and the normalise, so
+// device memory is read once: `lanes` (8, 16 or 32) lanes share a row, each
+// holding up to kLnVecs 16-byte vectors of it, and a warp takes 32 / lanes
+// rows. T: bf16 or fp32 rows; AT: the affine's type. Requires C a multiple
+// of the vector's 16 / sizeof(T) elements and C <= lanes * kLnVecs of them.
+template <typename T, typename AT>
+__global__ void __launch_bounds__(kThreads) ln_rows_kernel(const T* __restrict__ x,
+                                                           const AT* __restrict__ scale,
+                                                           const AT* __restrict__ bias,
+                                                           T* __restrict__ y, long long rows,
+                                                           int C, int lanes, float eps) {
+    constexpr int E = 16 / sizeof(T);
+    const int lane = threadIdx.x & 31;
+    const int sub = lane % lanes;
+    const long long row =
+        ((long long)blockIdx.x * kLnWarps + (threadIdx.x >> 5)) * (32 / lanes) + lane / lanes;
+    const int nv = C / E;
+    const bool live = row < rows;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (live ? row : 0) * C);
+
+    float f[kLnVecs][E];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kLnVecs; ++i) {
+        const int v = sub + i * lanes;
+        if (live && v < nv) {
+            ln_unpack(__ldg(xr + v), f[i]);
+#pragma unroll
+            for (int e = 0; e < E; ++e) s += f[i][e];
+        }
+    }
+    const float mean = ln_group_sum(s, lanes) / C;
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < kLnVecs; ++i) {
+        if (live && sub + i * lanes < nv) {
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+                const float d = f[i][e] - mean;
+                ss = fmaf(d, d, ss);
+            }
+        }
+    }
+    const float inv = rsqrtf(ln_group_sum(ss, lanes) / C + eps);
+    uint4* yr = reinterpret_cast<uint4*>(y + (live ? row : 0) * C);
+#pragma unroll
+    for (int i = 0; i < kLnVecs; ++i) {
+        const int v = sub + i * lanes;
+        if (live && v < nv) {
+            float a[E], b[E];
+            ln_affine(scale + v * E, a);
+            ln_affine(bias + v * E, b);
+#pragma unroll
+            for (int e = 0; e < E; ++e) f[i][e] = (f[i][e] - mean) * inv * a[e] + b[e];
+            yr[v] = ln_pack(f[i]);
+        }
+    }
+}
+
+// Any width: one warp per row, one element per lane per step, the row read
+// three times (the second and third time from L1).
+template <typename T, typename AT>
+__global__ void __launch_bounds__(kThreads) ln_generic_kernel(const T* __restrict__ x,
+                                                              const AT* __restrict__ scale,
+                                                              const AT* __restrict__ bias,
+                                                              T* __restrict__ y, long long rows,
+                                                              int C, float eps) {
+    const int lane = threadIdx.x & 31;
+    const long long row = (long long)blockIdx.x * kLnWarps + (threadIdx.x >> 5);
+    if (row >= rows) return;
+    const T* xr = x + row * C;
+    T* yr = y + row * C;
+    float s = 0.f;
+    for (int i = lane; i < C; i += 32) s += to_f(xr[i]);
     const float mean = idt_warp_sum(s) / C;
     float ss = 0.f;
-    for (int i = lane; i < half; i += 32) {
-        const float2 f = ln_load(xr[i]);
-        const float d0 = f.x - mean, d1 = f.y - mean;
-        ss += d0 * d0 + d1 * d1;
+    for (int i = lane; i < C; i += 32) {
+        const float d = to_f(xr[i]) - mean;
+        ss = fmaf(d, d, ss);
     }
     const float inv = rsqrtf(idt_warp_sum(ss) / C + eps);
-    for (int i = lane; i < half; i += 32) {
-        const float2 f = ln_load(xr[i]);
-        const int ch = 2 * i;
-        ln_store(yr + i, (f.x - mean) * inv * scale[ch] + bias[ch],
-                 (f.y - mean) * inv * scale[ch + 1] + bias[ch + 1]);
+    for (int i = lane; i < C; i += 32)
+        yr[i] = static_cast<T>((to_f(xr[i]) - mean) * inv * to_f(scale[i]) + to_f(bias[i]));
+}
+
+template <typename T, typename AT>
+cudaError_t ln_launch(const void* x, const void* scale, const void* bias, void* y, long long rows,
+                      int C, float eps, int lanes, cudaStream_t s) {
+    const auto* xp = static_cast<const T*>(x);
+    const auto* sp = static_cast<const AT*>(scale);
+    const auto* bp = static_cast<const AT*>(bias);
+    auto* yp = static_cast<T*>(y);
+    if (lanes == 0) {
+        const long long blocks = (rows + kLnWarps - 1) / kLnWarps;
+        ln_generic_kernel<T, AT><<<(unsigned)blocks, kThreads, 0, s>>>(xp, sp, bp, yp, rows, C, eps);
+        return cudaGetLastError();
     }
+    constexpr int E = 16 / sizeof(T);
+    if ((lanes != 8 && lanes != 16 && lanes != 32) || C % E || C / E > lanes * kLnVecs)
+        return cudaErrorInvalidValue;
+    const long long per_block = (long long)kLnWarps * (32 / lanes);
+    const long long blocks = (rows + per_block - 1) / per_block;
+    ln_rows_kernel<T, AT><<<(unsigned)blocks, kThreads, 0, s>>>(xp, sp, bp, yp, rows, C, lanes, eps);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -289,20 +402,23 @@ IDT_EXPORT int idt_group_norm(const void* x, const void* scale, const void* bias
 }
 
 // x, y: (rows, C) contiguous, bf16 (fp32 = 0) or fp32 (fp32 = 1); scale,
-// bias: (C,) fp32. Requires C even.
+// bias: (C,) bf16 (affine_fp32 = 0) or fp32 (1), read as stored. lanes: 8, 16
+// or 32 lanes per row on the register-resident route (x, y, scale and bias
+// 16-byte aligned, C a multiple of the 16-byte vector, at most 8 vectors a
+// lane), or 0 for the generic loop (any C).
 IDT_EXPORT int idt_layer_norm(const void* x, const void* scale, const void* bias, void* y,
-                              long long rows, int C, float eps, int fp32, void* stream) {
-    const long long blocks = (rows + kRowsPerLnBlock - 1) / kRowsPerLnBlock;
+                              long long rows, int C, float eps, int fp32, int affine_fp32,
+                              int lanes, void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float* sc = static_cast<const float*>(scale);
-    const float* bi = static_cast<const float*>(bias);
-    if (fp32) {
-        ln_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(static_cast<const float2*>(x), sc, bi,
-                                                        static_cast<float2*>(y), rows, C, eps);
-    } else {
-        ln_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-            static_cast<const __nv_bfloat162*>(x), sc, bi, static_cast<__nv_bfloat162*>(y),
-            rows, C, eps);
-    }
-    return cudaGetLastError();
+    cudaError_t err;
+    if (fp32)
+        err = affine_fp32
+                  ? ln_launch<float, float>(x, scale, bias, y, rows, C, eps, lanes, s)
+                  : ln_launch<float, __nv_bfloat16>(x, scale, bias, y, rows, C, eps, lanes, s);
+    else
+        err = affine_fp32
+                  ? ln_launch<__nv_bfloat16, float>(x, scale, bias, y, rows, C, eps, lanes, s)
+                  : ln_launch<__nv_bfloat16, __nv_bfloat16>(x, scale, bias, y, rows, C, eps,
+                                                            lanes, s);
+    return static_cast<int>(err);
 }

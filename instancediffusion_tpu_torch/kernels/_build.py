@@ -42,8 +42,8 @@ _SIGNATURES = {
     "idt_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _P, _F, _P],
     "idt_group_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    "idt_layer_norm": [_P, _P, _P, _P, _LL, _I, _F, _I, _P],
-    "idt_geglu_ff": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "idt_layer_norm": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
+    "idt_geglu_ff": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "idt_proj_split": [_P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "idt_merge_proj": [_P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

@@ -24,7 +24,7 @@ indexed by sequence position over the k tokens (L >= kv_len; positions past
 kv_len are ignored); q covers the first N positions. Labels are per batch
 row and shared by every head. The kernel keeps score (i, j) iff
 open_i | open_j | (bits_i & bits_j) != 0 | i == j (`instance_labels` gives
-the encoding); the plain version is `sdpa_xla` under `labels_to_dense`.
+the encoding); the plain version is `sdpa_fp32` under `labels_to_dense`.
 
 Training (`flash_attention_trainable`, `_labeled`): autograd Functions over
 the same (B,H,N,c) head views, unscaled q, no kv_len padding. Their forward
@@ -36,7 +36,7 @@ dk/dv kernel of `csrc/flash_attention_bwd.cu` (they replace `_flash_bwd`),
 which write dq, dk and dv into (B,N,H,c) buffers; the labels get no
 gradient. The plain versions are `flash_attention_fwd_lse_plain` and
 `flash_attention_bwd_plain` (`_flash_bwd`'s formulas in fp32); on the CPU
-the trainable functions are autograd of `sdpa_xla`.
+the trainable functions are autograd of `sdpa_fp32`.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ import torch.nn.functional as F
 
 from instancediffusion_tpu_torch.kernels import LAUNCHES
 from instancediffusion_tpu_torch.kernels import _build
-from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_xla
+from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_fp32
 
 _MAX_HEAD_DIM = 128
 GROUNDING_BIT = 1 << 30
@@ -211,7 +211,7 @@ def flash_attention(q, k, v, labels=None, pre_scaled=False, kv_len=None):
         _check_labels("flash_attention", labels, b, n, true_m)
     if q.device.type == "cpu":
         mask = None if labels is None else _plain_mask(labels, n, true_m)
-        return sdpa_xla(q, k[:, :, :true_m], v[:, :, :true_m], mask=mask,
+        return sdpa_fp32(q, k[:, :, :true_m], v[:, :, :true_m], mask=mask,
                         pre_scaled=pre_scaled)
     out = torch.empty((b, n, h, c), dtype=q.dtype, device=q.device)
     out_v = out.permute(0, 2, 1, 3)
@@ -235,7 +235,7 @@ def flash_attention_packed(q, k, v, num_heads=8, labels=None,
     if q.device.type == "cpu":
         split = lambda t: t.reshape(b, t.shape[1], num_heads, c).transpose(1, 2)
         mask = None if labels is None else _plain_mask(labels, n, true_m)
-        out = sdpa_xla(split(q), split(k[:, :true_m]), split(v[:, :true_m]),
+        out = sdpa_fp32(split(q), split(k[:, :true_m]), split(v[:, :true_m]),
                        mask=mask, pre_scaled=pre_scaled)
         return out.transpose(1, 2).reshape(b, n, hc)
     out = torch.empty((b, n, hc), dtype=q.dtype, device=q.device)
@@ -412,11 +412,11 @@ class _FlashTrainFn(torch.autograd.Function):
 
 def flash_attention_trainable(q, k, v):
     """Differentiable attention over (B,H,N,c) x (B,H,M,c) head views with
-    unscaled q: kernels K6 / dq / dk-dv on CUDA, autograd of `sdpa_xla` on
+    unscaled q: kernels K6 / dq / dk-dv on CUDA, autograd of `sdpa_fp32` on
     the CPU. Returns a (B,H,N,c) view of a (B,N,H,c) tensor."""
     _check_shapes("flash_attention_trainable", q, k, v, (0, 1, 3))
     if q.device.type == "cpu":
-        return sdpa_xla(q, k, v)
+        return sdpa_fp32(q, k, v)
     return _FlashTrainFn.apply(q, k, v, None, None)
 
 
@@ -428,7 +428,7 @@ def flash_attention_trainable_labeled(q, k, v, bits, open_):
     m = k.shape[2]
     _check_labels("flash_attention_trainable_labeled", (bits, open_), b, n, m)
     if q.device.type == "cpu":
-        return sdpa_xla(q, k, v, mask=_plain_mask((bits, open_), n, m))
+        return sdpa_fp32(q, k, v, mask=_plain_mask((bits, open_), n, m))
     return _FlashTrainFn.apply(q, k, v, bits, open_)
 
 

@@ -10,8 +10,10 @@ GroupNorm is one cooperative launch with the affine as the module keeps it
 (bf16 or fp32), 16-byte loads and a deterministic combine: each block sums
 its rows, a grid barrier, then each block normalises its rows walking them
 in reverse, so part of that second read comes from L2. `gn_plan` cuts the
-rows by shape. LayerNorm reads each row for statistics and once to
-normalise, with fp32 math and one rounding on store.
+rows by shape, and a batch too large for one resident grid into several
+launches over batch chunks. LayerNorm reads each row once: 8, 16 or 32 lanes
+share a row (`ln_plan`), hold it in registers between the fp32 statistics
+and the normalise, and round once on store; the affine is read as stored.
 
 The plain versions compute in fp32 and round once, like the kernels, so a
 kernel-vs-plain comparison measures the kernel and not two rounding choices.
@@ -60,27 +62,54 @@ def layer_norm_plain(x, scale, bias, eps=1e-5):
 class GnPlan(NamedTuple):
     """How `fused_group_norm` covers one (B, N, C) call: each sample's rows
     in `splits` chunks, chunk i holding rows [i * rows_per, min(N, (i + 1) *
-    rows_per)); threads per block; dynamic shared memory bytes."""
+    rows_per)); threads per block; dynamic shared memory bytes; samples per
+    cooperative launch (launch j takes samples [j * batch_chunk, min(B, (j +
+    1) * batch_chunk)), a grid of splits x that many blocks)."""
     splits: int
     rows_per: int
     threads: int
     smem: int
+    batch_chunk: int
+
+    def launches(self, b: int) -> list[tuple[int, int]]:
+        """(first sample, samples) of each launch over a batch of b."""
+        return [(s, min(self.batch_chunk, b - s)) for s in range(0, b, self.batch_chunk)]
 
 
 def gn_plan(b: int, n: int, c: int, sm_count: int) -> GnPlan:
     """Grid and shared memory of one GroupNorm call: one thread per 8-channel
     vector of a row times the rows a block takes at once, and each sample's
     rows split over at most GN_COOP_BLOCKS_PER_SM blocks per SM in all, so
-    the whole grid is resident for its barrier."""
+    the whole grid is resident for its barrier. A batch above that many
+    blocks is cut into the fewest equal launches that are each resident."""
     if c % 8 or c // 8 > GN_MAX_THREADS:
         raise ValueError(f"gn_plan: C={c} must be a multiple of 8 <= {8 * GN_MAX_THREADS}")
     lanes = c // 8
     threads = lanes * max(1, 256 // lanes)
     total = sm_count * GN_COOP_BLOCKS_PER_SM
-    if b > total:
-        raise ValueError(f"gn_plan: batch {b} exceeds the {total} co-resident blocks")
-    rows_per = -(-n // max(1, total // b))
-    return GnPlan(-(-n // rows_per), rows_per, threads, threads * 8 * 4)
+    chunk = -(-b // -(-b // total))
+    rows_per = -(-n // max(1, total // chunk))
+    return GnPlan(-(-n // rows_per), rows_per, threads, threads * 8 * 4, chunk)
+
+
+LN_MAX_VECS = 8  # kLnVecs in csrc/norms.cu: 16-byte vectors of a row per lane
+
+
+def ln_plan(c: int, elem_bytes: int) -> int:
+    """Lanes that share one LayerNorm row on the register-resident route:
+    the fewest of 8, 16, 32 that hold the row's 16-byte vectors at no more
+    than 5 a lane (so narrow rows go several to a warp), else the fewest
+    that hold it at LN_MAX_VECS; 0 when C is off the vector size or too
+    wide, which takes the generic loop."""
+    per_vec = 16 // elem_bytes
+    if c % per_vec:
+        return 0
+    vecs = c // per_vec
+    for most in (5, LN_MAX_VECS):
+        for lanes in (8, 16, 32):
+            if vecs <= lanes * most:
+                return lanes
+    return 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,6 +122,15 @@ def _check_affine(name, x, scale, bias):
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"{name}: scale {tuple(scale.shape)} / bias "
                          f"{tuple(bias.shape)} do not fit C={c}")
+
+
+def _kernel_affine(x, scale, bias):
+    """scale and bias as the kernels read them: on x's device, contiguous,
+    both bf16 or both fp32. Parameters kept that way (every module's) pass
+    through untouched, so a call costs no cast."""
+    if scale.dtype != bias.dtype or scale.dtype not in (torch.bfloat16, torch.float32):
+        scale, bias = scale.float(), bias.float()
+    return scale.to(x.device).contiguous(), bias.to(x.device).contiguous()
 
 
 def fused_group_norm(x, scale, bias, num_groups=32, eps=1e-5, act="none"):
@@ -116,24 +154,22 @@ def _group_norm_kernel(x, scale, bias, num_groups, eps, act):
     if act not in ("none", "silu"):
         raise ValueError(f"fused_group_norm: act={act!r}")
     x = x.contiguous()
-    if scale.dtype != bias.dtype or scale.dtype not in (torch.bfloat16, torch.float32):
-        scale, bias = scale.float(), bias.float()
-    scale = scale.to(x.device).contiguous()
-    bias = bias.to(x.device).contiguous()
+    scale, bias = _kernel_affine(x, scale, bias)
     plan = gn_plan(b, n, c, _sm_count(x.device.index))
     partial = torch.empty((b, plan.splits, 2, num_groups), dtype=torch.float64,
                           device=x.device)
     y = torch.empty_like(x)
     lib = _build.lib()
     with torch.cuda.device(x.device):
-        err = lib.idt_group_norm(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), partial.data_ptr(),
-            b, n, c, num_groups, plan.splits, plan.rows_per, plan.threads, plan.smem,
-            float(eps), int(act == "silu"), int(scale.dtype == torch.float32),
-            _build.stream_of(x),
-        )
-    _build.check(err, "fused_group_norm")
-    LAUNCHES["fused_group_norm"] += 1
+        for first, count in plan.launches(b):
+            err = lib.idt_group_norm(
+                x[first:].data_ptr(), scale.data_ptr(), bias.data_ptr(), y[first:].data_ptr(),
+                partial[first:].data_ptr(), count, n, c, num_groups, plan.splits,
+                plan.rows_per, plan.threads, plan.smem, float(eps), int(act == "silu"),
+                int(scale.dtype == torch.float32), _build.stream_of(x),
+            )
+            _build.check(err, "fused_group_norm")
+            LAUNCHES["fused_group_norm"] += 1
     return y
 
 
@@ -154,15 +190,17 @@ def _layer_norm_kernel(x, scale, bias, eps):
         raise ValueError(f"fused_layer_norm: C={c} must be even")
     x = x.contiguous()
     rows = x.numel() // c
-    scale32 = scale.to(device=x.device, dtype=torch.float32).contiguous()
-    bias32 = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    scale, bias = _kernel_affine(x, scale, bias)
     y = torch.empty_like(x)
+    lanes = ln_plan(c, x.element_size())
+    if any(t.data_ptr() % 16 for t in (x, y, scale, bias)):
+        lanes = 0
     lib = _build.lib()
     with torch.cuda.device(x.device):
         err = lib.idt_layer_norm(
-            x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), y.data_ptr(),
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
             rows, c, float(eps), int(x.dtype == torch.float32),
-            _build.stream_of(x),
+            int(scale.dtype == torch.float32), lanes, _build.stream_of(x),
         )
     _build.check(err, "fused_layer_norm")
     LAUNCHES["fused_layer_norm"] += 1

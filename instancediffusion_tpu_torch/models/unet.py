@@ -26,11 +26,11 @@ from torch.utils.checkpoint import checkpoint
 
 from instancediffusion_tpu_torch.config import UNetConfig
 from instancediffusion_tpu_torch.kernels.flash_attention import flash_attention
-from instancediffusion_tpu_torch.kernels.geglu_ff import ff_geglu_plain, fused_ff_geglu
+from instancediffusion_tpu_torch.kernels.geglu_ff import ff_geglu, ff_geglu_plain
 from instancediffusion_tpu_torch.kernels.head_layout import merge_proj, proj_split
 from instancediffusion_tpu_torch.models import unifusion
 from instancediffusion_tpu_torch.nn import core as nn
-from instancediffusion_tpu_torch.ops.attention import is_big, multi_head_attention
+from instancediffusion_tpu_torch.ops.attention import flash_route, multi_head_attention
 from instancediffusion_tpu_torch.ops.schedules import timestep_embedding
 
 
@@ -121,18 +121,27 @@ class MHA(torch.nn.Module):
 FUSED_PROJ = False
 
 
+def _apply_mha_fused(p: MHA, x, kv, num_heads, kv_len=None, labels=None):
+    """The FUSED_PROJ route: proj_split, split-heads flash attention,
+    merge_proj."""
+    c = p.to_q.weight.shape[0] // num_heads
+    n, m = x.shape[1], kv.shape[1]
+    dt = x.dtype
+    # q pre-scaled by 1/sqrt(c); k/v padded by proj_split to its row tile
+    # with zeroed rows, masked by kv_len
+    (q,) = proj_split(x, ((p.to_q.weight * (c ** -0.5)).to(dt),), num_heads)
+    k, v = proj_split(kv, (p.to_k.weight.to(dt), p.to_v.weight.to(dt)), num_heads)
+    out = flash_attention(q, k, v, labels=labels, pre_scaled=True,
+                          kv_len=m if kv_len is None else kv_len)
+    return merge_proj(out, p.to_out.weight.to(dt), p.to_out.bias.to(dt))[:, :n]
+
+
 def _apply_mha(p: MHA, x, kv, num_heads, impl, kv_len=None, mask=None, labels=None):
     c = p.to_q.weight.shape[0] // num_heads
     n, m = x.shape[1], kv.shape[1]
-    if FUSED_PROJ and impl == "kernel" and is_big(n, m, labels) and mask is None and c < 64:
-        dt = x.dtype
-        # q pre-scaled by 1/sqrt(c); k/v padded by proj_split to its row
-        # tile with zeroed rows, masked by kv_len
-        (q,) = proj_split(x, ((p.to_q.weight * (c ** -0.5)).to(dt),), num_heads)
-        k, v = proj_split(kv, (p.to_k.weight.to(dt), p.to_v.weight.to(dt)), num_heads)
-        out = flash_attention(q, k, v, labels=labels, pre_scaled=True,
-                              kv_len=m if kv_len is None else kv_len)
-        return merge_proj(out, p.to_out.weight.to(dt), p.to_out.bias.to(dt))[:, :n]
+    if (FUSED_PROJ and c < 64
+            and flash_route(impl, n, m, x.dtype, c, labels, mask) == "split"):
+        return _apply_mha_fused(p, x, kv, num_heads, kv_len, labels)
     pre_scaled = impl == "kernel"
     if pre_scaled:
         # inference only: fold 1/sqrt(c) into the bias-free to_q weight, so
@@ -159,7 +168,9 @@ class FeedForward(torch.nn.Module):
 
 
 def _apply_ff_geglu(p: FeedForward, x):
-    fn = fused_ff_geglu if nn.kernels_enabled() else ff_geglu_plain
+    """`ff_geglu` picks the fused kernel or the unfused route by dtype and
+    shape (`ff_fits`); `plain_kernels()` takes the fp32 plain version."""
+    fn = ff_geglu if nn.kernels_enabled() else ff_geglu_plain
     dt = x.dtype
     return fn(x, p.proj.weight.to(dt), p.proj.bias, p.out.weight.to(dt), p.out.bias)
 

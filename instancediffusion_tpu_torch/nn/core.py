@@ -11,8 +11,10 @@ OIHW, norms `weight`/`bias`. Initialisers mirror the JAX package (kaiming
 uniform fan-in, uniform bias) and draw from an explicit `torch.Generator`.
 
 Norms and the GEGLU feed-forward dispatch to the hand-written kernels
-(`kernels/`) unless a `plain_kernels()` block is active; each kernel
-wrapper uses its plain PyTorch version only for CPU tensors.
+(`kernels/`) by dtype, as the JAX package does: bf16 activations go to the
+kernels (LayerNorm's also takes fp32 rows), any other dtype to the plain
+versions, and so does everything inside a `plain_kernels()` block. Each
+kernel wrapper uses its plain PyTorch version only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from instancediffusion_tpu_torch.kernels import kernel_dtype
 from instancediffusion_tpu_torch.kernels.norms import (
     fused_group_norm, fused_layer_norm, group_norm_plain, layer_norm_plain,
 )
@@ -132,6 +135,12 @@ def kernels_enabled() -> bool:
     return _kernels_enabled[-1]
 
 
+def takes_kernel(x: torch.Tensor, fp32_too: bool = False) -> bool:
+    """Whether a call on x goes to its kernel: the kernels are on and x has
+    a dtype the kernel takes (`kernel_dtype`)."""
+    return kernels_enabled() and kernel_dtype(x.dtype, fp32_too)
+
+
 # ---------------------------------------------------------------------------
 # Norms: fp32 math, cast back to the input dtype
 # ---------------------------------------------------------------------------
@@ -142,13 +151,13 @@ def group_norm(p: Norm, x, num_groups=32, eps=1e-5, act="none"):
     with an optionally fused trailing SiLU (`act="silu"`)."""
     shape = x.shape
     x3 = x.reshape(shape[0], -1, shape[-1])
-    fn = fused_group_norm if kernels_enabled() else group_norm_plain
+    fn = fused_group_norm if takes_kernel(x) else group_norm_plain
     return fn(x3, p.weight, p.bias, num_groups, eps, act).reshape(shape)
 
 
 def layer_norm(p: Norm, x, eps=1e-5):
     """LayerNorm over the channel (last) axis."""
-    fn = fused_layer_norm if kernels_enabled() else layer_norm_plain
+    fn = fused_layer_norm if takes_kernel(x, fp32_too=True) else layer_norm_plain
     return fn(x, p.weight, p.bias, eps)
 
 

@@ -1,19 +1,25 @@
 """Multi-head attention (counterpart of `instancediffusion_tpu/ops/attention.py`).
 
-`sdpa_xla` is plain einsum/softmax attention with fp32 scores, the port of
-the JAX package's XLA path, and also the plain version of the flash
-attention kernel. `multi_head_attention` keeps the JAX routing: long
-sequences (`big`) and instance labels go to the flash kernel, packed when
+`sdpa_xla` is plain attention at the JAX package's precision: operands in
+the compute dtype, fp32 scores and softmax, probabilities rounded to the
+compute dtype before P V. It is the route of every call the flash kernels
+do not take. `sdpa_fp32` is the same function with every product in fp32,
+rounded once on output: the flash kernels' plain version (their oracle).
+`multi_head_attention` keeps the JAX routing (`flash_route`): long bf16
+sequences (`is_big`) and instance labels go to the flash kernel, packed when
 the head dim is at least 64 and split-heads below; everything else
-(cross-attention over 77 tokens, ds4/ds8, a dense mask) stays plain, and a
-plain call with labels expands them with `labels_to_dense`. `impl=
-"kernel_train"` (JAX's "pallas_train") routes the same long calls to the
-differentiable kernels, split-heads at every head dim, with unscaled q.
+(cross-attention over 77 tokens, ds4/ds8, a dense mask, any other dtype)
+stays plain, and a plain call with labels expands them with
+`labels_to_dense`. `impl="kernel_train"` (JAX's "pallas_train") routes the
+same long calls to the differentiable kernels, split-heads at every head
+dim, with unscaled q.
 """
 
 from __future__ import annotations
 
 import torch
+
+from instancediffusion_tpu_torch.kernels import kernel_dtype
 
 _NEG_INF = -1e9
 
@@ -28,19 +34,66 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, n, h * c)
 
 
-def sdpa_xla(q, k, v, mask=None, pre_scaled=False):
-    """Attention over (B,H,N,c) tensors in fp32, rounded once on output.
+def _softmax_scores(sim, mask):
+    if mask is not None:
+        sim = sim.masked_fill(~mask, _NEG_INF)
+    return torch.softmax(sim, dim=-1)
+
+
+def sdpa_fp32(q, k, v, mask=None, pre_scaled=False):
+    """Attention over (B,H,N,c) tensors with every product in fp32, rounded
+    once on output: the flash kernels' plain version.
 
     mask: optional boolean keep-mask broadcastable to (B,H,N,M); dropped
     scores are filled with -1e9 before the softmax. pre_scaled: 1/sqrt(c)
     was already folded into q."""
-    c = q.shape[-1]
-    scale = 1.0 if pre_scaled else c ** -0.5
+    scale = 1.0 if pre_scaled else q.shape[-1] ** -0.5
     sim = torch.einsum("bhnc,bhmc->bhnm", q.float(), k.float()) * scale
-    if mask is not None:
-        sim = sim.masked_fill(~mask, _NEG_INF)
-    attn = torch.softmax(sim, dim=-1)
+    attn = _softmax_scores(sim, mask)
     return torch.einsum("bhnm,bhmc->bhnc", attn, v.float()).to(q.dtype)
+
+
+class _ScoresFn(torch.autograd.Function):
+    """q k^T of (G,N,c) x (G,M,c) 16-bit operands on the tensor cores with an
+    fp32 result (`bmm(out_dtype=float32)`, which autograd does not
+    differentiate itself). Backward: the fp32 score gradient rounded to the
+    compute dtype, as the flash backward kernels round theirs, then both
+    products in that dtype with fp32 accumulation."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        return torch.bmm(q, k.transpose(1, 2), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k = ctx.saved_tensors
+        ds = grad.to(q.dtype)
+        return torch.bmm(ds, k), torch.bmm(ds.transpose(1, 2), q)
+
+
+def _scores_fp32(q, k):
+    """q k^T of (B,H,N,c) x (B,H,M,c) operands as fp32 (B,H,N,M): the
+    operands multiplied as they are, accumulated and returned in fp32. On
+    the card a 16-bit product runs on the tensor cores with an fp32 result;
+    elsewhere the operands are widened first, which gives the same numbers
+    (a product of two 16-bit values is exact in fp32)."""
+    if q.is_cuda and q.dtype in (torch.bfloat16, torch.float16):
+        b, h, n, c = q.shape
+        sim = _ScoresFn.apply(q.reshape(b * h, n, c), k.reshape(b * h, -1, c))
+        return sim.reshape(b, h, n, -1)
+    return torch.einsum("bhnc,bhmc->bhnm", q.float(), k.float())
+
+
+def sdpa_xla(q, k, v, mask=None, pre_scaled=False):
+    """Attention over (B,H,N,c) tensors at the JAX package's precision
+    (`instancediffusion_tpu/ops/attention.py::sdpa_xla`): q k^T from the
+    compute-dtype operands into fp32 scores, fp32 softmax, the probabilities
+    rounded to the compute dtype, P V in the compute dtype with fp32
+    accumulation. mask and pre_scaled as in `sdpa_fp32`."""
+    scale = 1.0 if pre_scaled else q.shape[-1] ** -0.5
+    attn = _softmax_scores(_scores_fp32(q, k) * scale, mask).to(q.dtype)
+    return torch.einsum("bhnm,bhmc->bhnc", attn, v)
 
 
 def labels_to_dense(bits, open_):
@@ -60,9 +113,24 @@ def is_big(n: int, m: int, labels=None) -> bool:
     return (n >= 1024 and m >= 512) or labels is not None
 
 
+def flash_route(impl: str, n: int, m: int, dtype, head_c: int, labels=None, mask=None) -> str:
+    """Where one attention call goes, decided before the call from its impl,
+    shape and dtype: "packed" or "split" (the forward flash kernel on the
+    (B,N,H*c) or the head-view layout), "train" (the differentiable
+    kernels) or "plain" (`sdpa_xla`). The kernels take bf16 only; any other
+    dtype stays plain, as in the JAX package."""
+    if not kernel_dtype(dtype) or not is_big(n, m, labels):
+        return "plain"
+    if impl == "kernel" and mask is None:
+        return "packed" if head_c >= 64 else "split"
+    if impl == "kernel_train":
+        return "train"
+    return "plain"
+
+
 def multi_head_attention(q, k, v, num_heads: int, mask=None, labels=None,
                          impl="plain", pre_scaled=False, kv_len=None):
-    """(B,N,H*c) x (B,M,H*c) -> (B,N,H*c). impl: "kernel" routes long
+    """(B,N,H*c) x (B,M,H*c) -> (B,N,H*c). impl: "kernel" routes long bf16
     sequences and labeled calls to the flash kernel; "kernel_train" routes
     them to the differentiable flash kernels (unscaled q, no dense mask, no
     kv_len); "plain" never does. mask: dense (B,1,N,M) bool keep-mask
@@ -70,9 +138,8 @@ def multi_head_attention(q, k, v, num_heads: int, mask=None, labels=None,
     positions, L >= M; q covers the first N. kv_len: true kv length when
     k/v are padded past it."""
     n, m = q.shape[1], k.shape[1]
-    big = is_big(n, m, labels)
-    head_c = q.shape[2] // num_heads
-    if impl == "kernel" and big and mask is None and head_c >= 64:
+    route = flash_route(impl, n, m, q.dtype, q.shape[2] // num_heads, labels, mask)
+    if route == "packed":
         from instancediffusion_tpu_torch.kernels.flash_attention import (
             flash_attention_packed,
         )
@@ -80,14 +147,14 @@ def multi_head_attention(q, k, v, num_heads: int, mask=None, labels=None,
         return flash_attention_packed(q, k, v, num_heads, labels=labels,
                                       pre_scaled=pre_scaled, kv_len=kv_len)
     qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
-    if impl == "kernel" and big and mask is None:
+    if route == "split":
         from instancediffusion_tpu_torch.kernels.flash_attention import (
             flash_attention,
         )
 
         out = flash_attention(qh, kh, vh, labels=labels, pre_scaled=pre_scaled,
                               kv_len=kv_len)
-    elif impl == "kernel_train" and big:
+    elif route == "train":
         # the backward computes dq = scale * ds k from unscaled q
         if pre_scaled or mask is not None or kv_len is not None:
             raise ValueError("kernel_train takes unscaled q, no dense mask and "

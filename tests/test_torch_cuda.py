@@ -21,7 +21,7 @@ from instancediffusion_tpu_torch.kernels import geglu_ff as ff
 from instancediffusion_tpu_torch.kernels import head_layout as hl
 from instancediffusion_tpu_torch.kernels import norms
 from instancediffusion_tpu_torch.nn import core as pnn
-from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_xla
+from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_fp32
 from instancediffusion_tpu_torch.ops.instance_mask import rasterize_boxes
 
 REL_TOL = 1e-2
@@ -67,7 +67,7 @@ def _labeled_split(q, k, v, labels, kv_len):
     mask = labels_to_dense(*labels)[:, :, :n, :kv_len]
     return (lambda: fa.flash_attention(_heads(q, 8), _heads(k, 8), _heads(v, 8), labels=labels,
                                        kv_len=kv_len),
-            lambda: sdpa_xla(_heads(q, 8), _heads(k[:, :kv_len], 8), _heads(v[:, :kv_len], 8),
+            lambda: sdpa_fp32(_heads(q, 8), _heads(k[:, :kv_len], 8), _heads(v[:, :kv_len], 8),
                              mask=mask), REL_TOL)
 
 
@@ -78,12 +78,12 @@ def _case(name, dev):
     if name == "flash_attention":  # ds1 fuser: unpadded ragged kv
         q, k, v = rnd(2, 4096, 320), rnd(2, 4280, 320), rnd(2, 4280, 320)
         return (lambda: fa.flash_attention(_heads(q, 8), _heads(k, 8), _heads(v, 8)),
-                lambda: sdpa_xla(_heads(q, 8), _heads(k, 8), _heads(v, 8)), REL_TOL)
+                lambda: sdpa_fp32(_heads(q, 8), _heads(k, 8), _heads(v, 8)), REL_TOL)
     if name == "flash_attention_kv_len":  # ds1 fuser, kv pre-padded past kv_len
         q, k, v = rnd(2, 4096, 320), rnd(2, 4608, 320), rnd(2, 4608, 320)
         return (lambda: fa.flash_attention(_heads(q, 8), _heads(k, 8), _heads(v, 8),
                                            kv_len=4280),
-                lambda: sdpa_xla(_heads(q, 8), _heads(k[:, :4280], 8),
+                lambda: sdpa_fp32(_heads(q, 8), _heads(k[:, :4280], 8),
                                  _heads(v[:, :4280], 8)), REL_TOL)
     if name == "flash_attention_labeled":  # ds1 masked fuser over 4280 keys
         q, k, v = rnd(2, 4096, 320), rnd(2, 4280, 320), rnd(2, 4280, 320)
@@ -97,7 +97,7 @@ def _case(name, dev):
         mask = labels_to_dense(*labels)[:, :, :1024, :1208]
 
         def plain():
-            out = sdpa_xla(_heads(q, 8), _heads(k, 8), _heads(v, 8), mask=mask)
+            out = sdpa_fp32(_heads(q, 8), _heads(k, 8), _heads(v, 8), mask=mask)
             return out.transpose(1, 2).reshape(2, 1024, 640)
 
         return lambda: fa.flash_attention_packed(q, k, v, 8, labels=labels), plain, REL_TOL
@@ -105,7 +105,7 @@ def _case(name, dev):
         q, k, v = rnd(2, 1024, 640), rnd(2, 1536, 640), rnd(2, 1536, 640)
 
         def plain():
-            out = sdpa_xla(_heads(q, 8), _heads(k[:, :1208], 8), _heads(v[:, :1208], 8))
+            out = sdpa_fp32(_heads(q, 8), _heads(k[:, :1208], 8), _heads(v[:, :1208], 8))
             return out.transpose(1, 2).reshape(2, 1024, 640)
 
         return lambda: fa.flash_attention_packed(q, k, v, 8, kv_len=1208), plain, REL_TOL
@@ -122,10 +122,10 @@ def _case(name, dev):
         sc, bi = torch.randn(96, generator=g, device=dev), torch.randn(96, generator=g, device=dev)
         return (lambda: norms.fused_layer_norm(x, sc, bi, 1e-6),
                 lambda: norms.layer_norm_plain(x, sc, bi, 1e-6), FP32_REL_TOL)
-    assert name == "fused_ff_geglu"  # ds2 transformer FF
-    x = rnd(2, 1024, 640)
-    w1, b1 = rnd(5120, 640, std=640 ** -0.5), rnd(5120, std=0.1)
-    w2, b2 = rnd(640, 2560, std=2560 ** -0.5), rnd(640, std=0.1)
+    assert name == "fused_ff_geglu"  # ds1 transformer FF
+    x = rnd(2, 4096, 320)
+    w1, b1 = rnd(2560, 320, std=320 ** -0.5), rnd(2560, std=0.1)
+    w2, b2 = rnd(320, 1280, std=1280 ** -0.5), rnd(320, std=0.1)
     return (lambda: ff.fused_ff_geglu(x, w1, b1, w2, b2),
             lambda: ff.ff_geglu_plain(x, w1, b1, w2, b2), REL_TOL)
 
@@ -240,7 +240,7 @@ def test_kernels_reject_what_they_do_not_take(dev):
     x = torch.zeros(2, 8, 96, device=dev, dtype=torch.bfloat16)
     w1 = torch.zeros(768, 96, device=dev, dtype=torch.bfloat16)
     w2 = torch.zeros(96, 384, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 64"):
+    with pytest.raises(ValueError, match="does not fit the kernel"):
         ff.fused_ff_geglu(x, w1, torch.zeros(768), w2, torch.zeros(96))
     with pytest.raises(ValueError, match="multiples of 64"):
         hl.proj_split(x, [w1[:96]], 4)
@@ -265,7 +265,7 @@ def test_flash_forward_at_main_batch_on_card(dev, case):
     if case == "packed":
         q, k, v = _rnd(g, dev, b, 1024, 640), _rnd(g, dev, b, 1208, 640), _rnd(g, dev, b, 1208, 640)
         kern = lambda: fa.flash_attention_packed(q, k, v, 8)
-        ref = sdpa_xla(_heads(q, 8), _heads(k, 8), _heads(v, 8)).transpose(1, 2).reshape(b, 1024, 640)
+        ref = sdpa_fp32(_heads(q, 8), _heads(k, 8), _heads(v, 8)).transpose(1, 2).reshape(b, 1024, 640)
     else:
         m = {"self": 4096, "fuser": 4280, "fuser_kv_len": 4608, "labeled": 4280}[case]
         kv = 4280 if case == "fuser_kv_len" else m
@@ -276,7 +276,7 @@ def test_flash_forward_at_main_batch_on_card(dev, case):
             labels = (bits.repeat_interleave(8, 0), open_.repeat_interleave(8, 0))
             mask = labels_to_dense(*labels)[:, :, :4096, :kv]
         kern = lambda: fa.flash_attention(q, k, v, labels=labels, kv_len=kv)
-        ref = sdpa_xla(q, k[:, :, :kv], v[:, :, :kv], mask=mask)
+        ref = sdpa_fp32(q, k[:, :, :kv], v[:, :, :kv], mask=mask)
     kernels.reset_launch_counts()
     out = kern()
     torch.cuda.synchronize()
@@ -296,7 +296,7 @@ def test_flash_forward_head_dims_on_card(dev, c):
     k, v = (_heads(_rnd(g, dev, 2, 333, 3 * c), 3) for _ in range(2))
     for m in (333, 77):
         out = fa.flash_attention(q, k, v, kv_len=m)
-        ref = sdpa_xla(q, k[:, :, :m], v[:, :, :m])
+        ref = sdpa_fp32(q, k[:, :, :m], v[:, :, :m])
         assert (out.float() - ref.float()).abs().max() <= REL_TOL * ref.float().abs().max()
     out, lse = fa.flash_attention_fwd_lse(q, k, v)
     pout, plse = fa.flash_attention_fwd_lse_plain(q, k, v)
@@ -400,17 +400,17 @@ def test_training_kernels_match_plain_on_card(dev, case):
 @pytest.mark.parametrize("labeled", [False, True])
 def test_trainable_attention_autograd_on_card(dev, labeled):
     """flash_attention_trainable(_labeled) under autograd: the kernels'
-    gradients against autograd of the plain attention (sdpa_xla)."""
+    gradients against autograd of the plain attention (sdpa_fp32)."""
     labels = _box_labels(dev, 32) if labeled else None
     q, k, v, do, _ = _train_case(dev, 1024, 1208, 40, seed=1)
     ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
     refs = [t.detach().requires_grad_(True) for t in (q, k, v)]
     if labeled:
         out = fa.flash_attention_trainable_labeled(*ins, *labels)
-        ref = sdpa_xla(*refs, mask=labels_to_dense(*labels)[:, :, :1024, :1208])
+        ref = sdpa_fp32(*refs, mask=labels_to_dense(*labels)[:, :, :1024, :1208])
     else:
         out = fa.flash_attention_trainable(*ins)
-        ref = sdpa_xla(*refs)
+        ref = sdpa_fp32(*refs)
     out.backward(do)
     ref.backward(do)
     for a, b in zip(ins, refs):
@@ -510,3 +510,191 @@ def test_tiny_train_step_on_card(dev, masked):
         groups[key] = groups.get(key, 0.0) + p.grad.float().pow(2).sum().item()
     assert set(groups) == {"fuser", "position_net", "scaleu"}
     assert all(v > 0 for v in groups.values()), groups
+
+
+# ---------------------------------------------------------------------------
+# the redesigned GEGLU feed-forward (TMA, wgmma) and LayerNorm kernels; the
+# routes by shape and dtype; GroupNorm over batch chunks
+# ---------------------------------------------------------------------------
+
+
+def _ff_case(g, dev, m, c, bias_dtype):
+    inner = 4 * c
+    return [_rnd(g, dev, m, c), _rnd(g, dev, 2 * inner, c, std=c ** -0.5),
+            _rnd(g, dev, 2 * inner, std=0.1).to(bias_dtype),
+            _rnd(g, dev, c, inner, std=inner ** -0.5), _rnd(g, dev, c, std=0.1).to(bias_dtype)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("batch", [2, 16])
+@pytest.mark.parametrize("level", ["ds1", "ds2", "ds4", "ds8"])
+def test_ff_geglu_levels_on_card(dev, level, batch, bias_dtype):
+    """Every transformer FF of the UNet through the one switch: ds1 and ds2
+    (C=640, clusters of two blocks) launch the fused kernel once, ds4 and
+    ds8 (C=1280) take the unfused route; both within tolerance of the fp32
+    plain version, biases bf16 or fp32 as stored, and the kernel bitwise
+    equal across two runs."""
+    n, c = {"ds1": (4096, 320), "ds2": (1024, 640), "ds4": (256, 1280), "ds8": (64, 1280)}[level]
+    args = _ff_case(torch.Generator(device=dev).manual_seed(3), dev, batch * n, c, bias_dtype)
+    args[0] = args[0].reshape(batch, n, c)
+    kernels.reset_launch_counts()
+    out = ff.ff_geglu(*args)
+    torch.cuda.synchronize()
+    fits = ff.ff_fits(batch * n, c, 4 * c)
+    assert fits == (c in (320, 640))
+    assert kernels.LAUNCHES["fused_ff_geglu"] == int(fits)
+    assert kernels.ROUTES["ff_geglu_unfused"] == int(not fits)
+    ref = ff.ff_geglu_plain(*args).float()
+    assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+    # the unfused route also rounds a, g and the first product to bf16
+    tol = REL_TOL if fits else 2 * REL_TOL
+    assert (out.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+    assert torch.equal(out, ff.ff_geglu(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, c", [(8229, 320), (2053, 320), (77, 320), (1, 320), (200, 128),
+                                  (130, 64), (2053, 640), (19328, 640), (1, 640)])
+def test_ff_geglu_ragged_rows_on_card(dev, m, c):
+    """Row counts off the cluster's 64 rows: the last row tile's missing rows
+    are read as zero and never stored."""
+    args = _ff_case(torch.Generator(device=dev).manual_seed(4), dev, m, c, torch.float32)
+    guard = torch.full((m + 256, c), 7.0, device=dev, dtype=torch.bfloat16)
+    out = ff.fused_ff_geglu(*args)
+    ref = ff.ff_geglu_plain(*args).float()
+    assert (out.float() - ref).abs().max().item() <= REL_TOL * ref.abs().max().item()
+    assert bool((guard == 7.0).all())
+    assert torch.equal(out, ff.fused_ff_geglu(*args))
+
+
+@pytest.mark.cuda
+def test_ff_geglu_kernel_refuses_what_does_not_fit(dev):
+    """Called directly, the kernel wrapper raises on a width it was not built
+    for; only `ff_geglu` routes."""
+    kernels.reset_launch_counts()
+    for c in (960, 1280):
+        args = _ff_case(torch.Generator(device=dev).manual_seed(5), dev, 64, c, torch.bfloat16)
+        with pytest.raises(ValueError, match="does not fit"):
+            ff.fused_ff_geglu(*args)
+    with pytest.raises(ValueError, match="got torch.float32"):
+        ff.fused_ff_geglu(*(a.float() for a in
+                            _ff_case(torch.Generator(device=dev).manual_seed(5), dev, 64, 320,
+                                     torch.float32)))
+    assert sum(kernels.LAUNCHES.values()) == 0
+
+
+# the B=16 LayerNorm rows of the UNet forward, CLIP's, and the fp32 ConvNeXt
+# rows of the grounding tokenizer; a width off the vector size and one past
+# eight vectors a lane (the generic loop)
+LN_SHAPES = [(16 * 4096, 320, torch.bfloat16), (16 * 4280, 320, torch.bfloat16),
+             (16 * 1024, 640, torch.bfloat16), (16 * 1208, 640, torch.bfloat16),
+             (16 * 256, 1280, torch.bfloat16), (16 * 440, 1280, torch.bfloat16),
+             (2 * 4096, 320, torch.bfloat16), (2 * 77, 768, torch.bfloat16),
+             (16384, 96, torch.float32), (4096, 192, torch.float32), (1024, 384, torch.float32),
+             (256, 768, torch.float32), (333, 100, torch.bfloat16), (100, 2560, torch.bfloat16),
+             (5, 320, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("affine_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows, c, dtype", LN_SHAPES)
+def test_layer_norm_shapes_on_card(dev, rows, c, dtype, affine_dtype):
+    """K4 at every smoke shape with the affine as stored (bf16 or fp32): one
+    launch, no cast, within tolerance of the plain version, bitwise equal
+    across two runs, nothing written past the last row."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = (torch.randn((rows, c), generator=g, device=dev) * 2.0 + 0.3).to(dtype)
+    sc = torch.randn(c, generator=g, device=dev).to(affine_dtype)
+    bi = torch.randn(c, generator=g, device=dev).to(affine_dtype)
+    guard = torch.full((4096,), 7.0, device=dev, dtype=dtype)
+    kernels.reset_launch_counts()
+    out = norms.fused_layer_norm(x, sc, bi, 1e-5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"fused_layer_norm": 1}
+    ref = norms.layer_norm_plain(x, sc, bi, 1e-5).float()
+    tol = REL_TOL if dtype == torch.bfloat16 else FP32_REL_TOL
+    assert (out.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+    assert bool((guard == 7.0).all())
+    assert torch.equal(out, norms.fused_layer_norm(x, sc, bi, 1e-5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, n, c", [(558, 64, 320), (600, 64, 1280), (558, 1024, 320)])
+def test_group_norm_large_batch_on_card(dev, b, n, c):
+    """A batch above the card's resident blocks (528 on an H100; 558 rows is
+    generate at mis=0.36 with 30 instances and 9 images) runs in several
+    cooperative launches and matches the plain version on every sample."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = _rnd(g, dev, b, n, c, std=3.0) + 0.5
+    sc, bi = _rnd(g, dev, c), _rnd(g, dev, c)
+    plan = norms.gn_plan(b, n, c, torch.cuda.get_device_properties(dev).multi_processor_count)
+    kernels.reset_launch_counts()
+    out = norms.fused_group_norm(x, sc, bi, 32, 1e-5, "silu")
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"fused_group_norm": len(plan.launches(b))}
+    assert len(plan.launches(b)) > 1
+    ref = norms.group_norm_plain(x, sc, bi, 32, 1e-5, "silu").float()
+    err = (out.float() - ref).abs().amax(dim=(1, 2))
+    assert bool((err <= REL_TOL * ref.abs().max()).all()), err.max()
+
+
+@pytest.mark.cuda
+def test_fp32_compute_routes_plain_on_card(dev):
+    """fp32 activations on the card: the layer functions and attention take
+    the plain versions (LayerNorm's kernel keeps its fp32 rows), nothing
+    raises; the kernel wrappers themselves still refuse fp32."""
+    from instancediffusion_tpu_torch.ops.attention import multi_head_attention
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((2, 1024, 64), generator=g, device=dev)
+    gn, ln = pnn.Norm(64, device=dev), pnn.Norm(64, device=dev)
+    kernels.reset_launch_counts()
+    y = pnn.group_norm(gn, x, act="silu")
+    assert torch.equal(y, norms.group_norm_plain(x, gn.weight, gn.bias, 32, 1e-5, "silu"))
+    out = multi_head_attention(x, x, x, 8, impl="kernel")
+    assert torch.equal(out, multi_head_attention(x, x, x, 8, impl="plain"))
+    pnn.layer_norm(ln, x)
+    assert kernels.LAUNCHES == {"fused_layer_norm": 1}
+    with pytest.raises(ValueError, match="got torch.float32"):
+        norms.fused_group_norm(x, gn.weight, gn.bias)
+
+
+@pytest.mark.cuda
+def test_tiny_fp32_generate_on_card(dev, monkeypatch):
+    """A tiny fp32 pipeline (compute_dtype fp32, the JAX package's exact
+    route) generates on the card: only LayerNorm's kernel launches, and the
+    images match plain_kernels() within one uint8 level."""
+    from instancediffusion_tpu_torch.config import load_config
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
+
+    monkeypatch.setenv("IDTPU_ALLOW_HASH_TOKENIZER", "1")
+    # full fp32 on both sides: cuDNN's TF32 convolutions (the default) pick
+    # their algorithm per call and would differ by more than the kernels do
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gcfg = dict(in_dim=64, out_dim=64, mid_dim=64, fourier_freqs=4, fourier_freqs_polygons=4,
+                n_scribble_points=4, n_polygon_points=8, seg_channels=4, seg_resize_input=64,
+                convnext_depths=(1, 1), convnext_dims=(32, 64), convnext_feature_dim=4096)
+    cfg = load_config(overrides=dict(
+        model=dict(image_size=32, model_channels=64, num_heads=8, context_dim=64, max_objs=4,
+                   grounding_tokenizer=gcfg, channel_mult=(1, 2), num_res_blocks=1,
+                   attention_resolutions=(1, 2)),
+        autoencoder=dict(ch=32, ch_mult=(1, 2), resolution=64),
+        text_encoder=dict(vocab_size=512, hidden_size=64, intermediate_size=128,
+                          num_hidden_layers=1, num_attention_heads=4)))
+    pipe = InstanceDiffusionPipeline.random_init(cfg, seed=0, device=dev, dtype=torch.float32)
+    for name, p in pipe.unet.named_parameters():  # no zero-initialised gate or output conv
+        if any(k in name for k in ("alpha", "scaleu", "out.conv", "out_conv", "proj_out")):
+            p.data.normal_(0, 0.5, generator=torch.Generator(device=dev).manual_seed(len(name)))
+    meta = {"prompt": "a cat and a dog", "phrases": ["a cat", "a dog"],
+            "locations": [[0.1, 0.2, 0.5, 0.9], [0.5, 0.3, 0.9, 0.9]]}
+    kernels.reset_launch_counts()
+    imgs = pipe.generate(meta, num_images=2, steps=4, mis=0.0, seed=0)
+    launched = {k for k, v in kernels.LAUNCHES.items() if v}
+    assert launched == {"fused_layer_norm"}, dict(kernels.LAUNCHES)
+    with pnn.plain_kernels():
+        ref = pipe.generate(meta, num_images=2, steps=4, mis=0.0, seed=0)
+    assert imgs.shape == ref.shape and imgs.dtype == ref.dtype
+    assert int(imgs.max()) != int(imgs.min())
+    assert abs(imgs.astype(int) - ref.astype(int)).max() <= 1

@@ -124,12 +124,15 @@ def _mha_pair(seed, dim, heads):
 
 def test_apply_mha_fused_route_matches_jax(fused_jax, fused_port):
     """Self-attention at n = 1024 (4 heads of 40): the port's route
-    (proj_split, flash attention, merge_proj) against JAX's."""
+    (proj_split, flash attention, merge_proj) against JAX's. The switch
+    gives the route bf16 calls only; it is held to JAX in fp32 here, where
+    every wrapper runs its plain version, so the route's function is called
+    itself."""
     b, n, h, c = 1, 1024, 4, 40
     jp, mod = _mha_pair(0, h * c, h)
     x = np.random.default_rng(3).standard_normal((b, n, h * c)).astype(np.float32)
     ref = junet._apply_mha(jp, jnp.asarray(x), jnp.asarray(x), h, impl="pallas")
-    out = punet._apply_mha(mod, torch.from_numpy(x), torch.from_numpy(x), h, "kernel")
+    out = punet._apply_mha_fused(mod, torch.from_numpy(x), torch.from_numpy(x), h)
     assert fused_port == ["proj_split", "proj_split", "merge_proj"]
     assert tuple(out.shape) == ref.shape == (b, n, h * c)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-3, atol=2e-3)
@@ -140,16 +143,25 @@ def test_apply_mha_fused_route_matches_jax(fused_jax, fused_port):
 
 
 def test_fused_route_not_taken_for_training_or_wide_heads(fused_port):
-    """kernel_train (unscaled q) and head dims >= 64 keep the unfused route."""
+    """kernel_train (unscaled q), head dims >= 64 and any dtype but bf16 keep
+    the unfused route; a bf16 inference call at head dim 32 takes the fused
+    one."""
     _, mod = _mha_pair(1, 128, 2)  # head dim 64
     x = torch.randn(1, 1024, 128, generator=torch.Generator().manual_seed(0))
-    punet._apply_mha(mod, x, x, 2, "kernel")
+    xb = x.bfloat16()
+    punet._apply_mha(mod, xb, xb, 2, "kernel")
     _, mod = _mha_pair(1, 128, 4)  # head dim 32
-    punet._apply_mha(mod, x, x, 4, "kernel_train")
+    punet._apply_mha(mod, xb, xb, 4, "kernel_train")
+    punet._apply_mha(mod, x, x, 4, "kernel")  # fp32
     assert fused_port == []
+    fused = punet._apply_mha(mod, xb, xb, 4, "kernel")
+    assert fused_port == ["proj_split", "proj_split", "merge_proj"]
+    with torch.no_grad():
+        unfused = punet._apply_mha(mod, xb, xb, 4, "plain")
+    torch.testing.assert_close(fused.float(), unfused.float(), rtol=4e-2, atol=4e-2)
 
 
-def test_fuser_fused_route_with_labels_matches_jax(fused_jax, fused_port):
+def test_fuser_fused_route_with_labels_matches_jax(fused_jax, fused_port, monkeypatch):
     """The gated fuser with instance labels: JAX pads the grounding block to
     the flash kernel's block and masks it with kv_len; the port passes
     [x | objs] unpadded (proj_split pads and zeroes, kv_len masks)."""
@@ -174,6 +186,10 @@ def test_fuser_fused_route_with_labels_matches_jax(fused_jax, fused_port):
     ref = junet._apply_fuser(jtree, jnp.asarray(x), jnp.asarray(objs), h, 1.0,
                              (jnp.asarray(bits), jnp.asarray(open_)), "pallas")
     labels = (torch.from_numpy(bits), torch.from_numpy(open_))
+    # fp32 on the CPU: the fuser's attention calls the route's function itself
+    monkeypatch.setattr(punet, "_apply_mha", lambda p, x, kv, heads, impl, kv_len=None,
+                        mask=None, labels=None: punet._apply_mha_fused(p, x, kv, heads, kv_len,
+                                                                       labels))
     out = punet._apply_fuser(mod, torch.from_numpy(x), torch.from_numpy(objs), h, 1.0,
                              "kernel", labels)
     assert fused_port == ["proj_split", "proj_split", "merge_proj"]

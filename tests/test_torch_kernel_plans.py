@@ -2,17 +2,24 @@
 
 `tma_plan` derives the 4-D TMA tensor map of each flash-attention operand
 from the view the wrapper is given; `gn_plan` cuts each sample's rows over
-the GroupNorm kernel's cooperative grid. Neither needs a card, so the shapes and
-views of the main path are checked here: strides, boxes and coordinate
-slots of the maps, and that every row and channel of a GroupNorm call is
-covered exactly once.
+the GroupNorm kernel's cooperative grid (and a large batch over several
+launches); `ff_fits` / `ff_plan` say which feed-forward shapes the fused
+kernel serves and how it tiles them; `ln_plan` picks the lanes that share a
+LayerNorm row; `takes_kernel` / `flash_route` route a call by dtype. None
+needs a card, so the shapes and views of the main path are checked here:
+strides, boxes and coordinate slots of the maps, and that every row, channel
+and inner chunk is covered exactly once.
 """
 
 import pytest
 import torch
 
+from instancediffusion_tpu_torch import kernels
 from instancediffusion_tpu_torch.kernels import flash_attention as fa
+from instancediffusion_tpu_torch.kernels import geglu_ff as ff
 from instancediffusion_tpu_torch.kernels import norms
+from instancediffusion_tpu_torch.nn import core as pnn
+from instancediffusion_tpu_torch.ops.attention import flash_route
 
 # GroupNorm shapes (B, rows, C) of the B=16 gate-1 UNet forward and of the
 # VAE decoder at B=8
@@ -135,6 +142,7 @@ def test_gn_plan_covers_every_row_and_channel_once(shape, sm_count):
     assert sorted(8 * (t % lanes) + e for t in range(lanes) for e in range(8)) == list(range(c))
     # the whole cooperative grid is resident for its barrier
     assert b * plan.splits <= sm_count * norms.GN_COOP_BLOCKS_PER_SM
+    assert plan.launches(b) == [(0, b)]
     assert plan.smem == plan.threads * 8 * 4
 
 
@@ -147,9 +155,231 @@ def test_gn_plan_fills_the_card_at_the_main_path_shapes():
         assert plan.splits >= 0.9 * min(n, per_sample), (b, n, c, plan)
 
 
-@pytest.mark.parametrize("b, n, c", [(2, 64, 36), (2, 64, 2568), (600, 64, 320)])
+@pytest.mark.parametrize("b, n, c", [(2, 64, 36), (2, 64, 2568)])
 def test_gn_plan_rejects_what_the_kernel_cannot_take(b, n, c):
-    """A channel count off 8 or past 2560; a batch larger than the
-    cooperative grid can hold resident."""
+    """A channel count off 8 or past 2560."""
     with pytest.raises(ValueError):
         norms.gn_plan(b, n, c, 132)
+
+
+# 558: generate at mis=0.36 with 30 instances and 9 images (2 * 31 * 9 rows)
+@pytest.mark.parametrize("sm_count", [132, 114, 66])
+@pytest.mark.parametrize("b, n, c", [(558, 4096, 320), (558, 64, 1280), (600, 64, 320),
+                                     (529, 1024, 640), (2000, 256, 1280)])
+def test_gn_plan_cuts_a_large_batch_into_resident_launches(b, n, c, sm_count):
+    """A batch above the blocks the card holds resident goes in several
+    cooperative launches: every sample in exactly one, every launch's grid
+    resident, the launches as equal as the batch allows."""
+    resident = sm_count * norms.GN_COOP_BLOCKS_PER_SM
+    plan = norms.gn_plan(b, n, c, sm_count)
+    launches = plan.launches(b)
+    seen = torch.zeros(b, dtype=torch.int32)
+    for first, count in launches:
+        assert 0 < count <= plan.batch_chunk
+        assert count * plan.splits <= resident
+        seen[first:first + count] += 1
+    assert bool((seen == 1).all())
+    assert len(launches) == -(-b // resident)  # the fewest that can be resident
+    counts = [count for _, count in launches]
+    assert max(counts) - min(counts) <= len(launches)
+    assert plan.splits * plan.rows_per >= n > (plan.splits - 1) * plan.rows_per
+
+
+# ---------------------------------------------------------------------------
+# GEGLU feed-forward: which shapes the fused kernel serves, and its tiles
+# ---------------------------------------------------------------------------
+
+# (rows per sample, C) of every transformer FF of the UNet, with how many run
+# in one gate-1 forward (ds8 is the mid block)
+UNET_FF = {"ds1": (4096, 320, 10), "ds2": (1024, 640, 10), "ds4": (256, 1280, 10),
+           "ds8": (64, 1280, 2)}
+
+
+@pytest.mark.parametrize("batch", [2, 16, 80])
+def test_ff_fits_routes_each_unet_level(batch):
+    """ds1 and ds2 go to the fused kernel (C=640 on clusters of two blocks);
+    ds4 and ds8 (C=1280: x alone would take 160 KB of each block's shared
+    memory; the JAX package's ff_fits keeps these two on XLA as well) go to
+    the unfused route. Per gate-1 forward that is 20 kernel launches and 12
+    unfused calls, the counts chip_smoke.py checks."""
+    fits = {k: ff.ff_fits(batch * n, c, 4 * c) for k, (n, c, _) in UNET_FF.items()}
+    assert fits == {"ds1": True, "ds2": True, "ds4": False, "ds8": False}
+    fused = sum(cnt for k, (_, _, cnt) in UNET_FF.items() if fits[k])
+    assert (fused, sum(cnt for _, _, cnt in UNET_FF.values()) - fused) == (20, 12)
+
+
+def test_ff_gate_erf_is_the_rational_of_the_source():
+    """The gate's erf: the coefficients in csrc/geglu_ff_sm90.cuh are the
+    ones `erf_rational` mirrors, and that rational is erf to a few fp32
+    roundings (|error| <= 5e-7 over [-6, 6], evaluated in fp32; the bf16
+    rounding of the gated value that follows is 4e-3 relative), odd, and
+    saturating within 3e-7 of +-1."""
+    import re
+    from pathlib import Path
+
+    src = (Path(ff.__file__).parents[1] / "csrc" / "geglu_ff_sm90.cuh").read_text()
+    body = src[src.index("const float z2 = z * z;"):src.index("__fdividef(a * z, b)")]
+    found = [float(v) for v in re.findall(r"(-?\d\.\d+e-\d+)f", body)]
+    assert tuple(found) == ff.ERF_P + ff.ERF_Q
+    z = torch.linspace(-6.0, 6.0, 200001)
+    got = ff.erf_rational(z)
+    assert got.dtype == torch.float32
+    assert (got.double() - torch.erf(z.double())).abs().max().item() <= 5e-7
+    assert torch.equal(got, -ff.erf_rational(-z)) and got.abs().max().item() <= 1.0 + 3e-7
+
+
+def _ff_args(g, c, dt):
+    return [t.to(dt) for t in (
+        torch.randn(2, 8, c, generator=g), torch.randn(8 * c, c, generator=g) * c ** -0.5,
+        torch.randn(8 * c, generator=g) * 0.1, torch.randn(c, 4 * c, generator=g) * 0.05,
+        torch.randn(c, generator=g) * 0.1)]
+
+
+def test_ff_geglu_switch_counts_both_routes():
+    """The one switch: a bf16 call that fits takes the kernel route (its
+    plain version on the CPU), anything else the unfused route, and the
+    unfused calls are counted."""
+    g = torch.Generator().manual_seed(0)
+    kernels.reset_launch_counts()
+    a = _ff_args(g, 64, torch.bfloat16)
+    assert torch.equal(ff.ff_geglu(*a), ff.ff_geglu_plain(*a))
+    assert kernels.ROUTES["ff_geglu_unfused"] == 0
+    for c, dt in ((64, torch.float32), (96, torch.bfloat16)):
+        a = _ff_args(g, c, dt)
+        assert torch.equal(ff.ff_geglu(*a), ff.ff_geglu_unfused(*a))
+    assert kernels.ROUTES["ff_geglu_unfused"] == 2
+
+
+@pytest.mark.parametrize("m, c", [(65536, 320), (32768, 320), (8229, 320), (2053, 320),
+                                  (128, 64), (200, 128), (16384, 640), (2048, 640),
+                                  (2053, 640)])
+def test_ff_plan_covers_every_inner_chunk_once(m, c):
+    """The tile plan: the three tensor maps (64-column boxes over the
+    contiguous matrices, the weights' boxes one ring slot's rows); a cluster
+    of one block (two at C=640) per 64 rows; per turn every (warpgroup, C
+    slice) of w1 and every (warpgroup's output rows, gated chunk) of w2 in
+    exactly one ring slot, the two warpgroups of a block on alternate slots;
+    every inner column gated once, every output column and every row owned
+    once; the shared memory within the block's 232,448 bytes."""
+    inner = 4 * c
+    plan = ff.ff_plan(m, c, inner)
+    cl = plan.cluster
+    assert cl == ff.cluster_blocks(c) == (2 if c == 640 else 1)
+    cols = c // (2 * cl)  # output columns a warpgroup
+    assert cols <= ff.MAX_BLOCK_COLS // 2
+    assert plan.x == (c, m, 2 * c, 64, 64)
+    assert plan.w1 == (c, 2 * inner, 2 * c, 64, ff.GATED)
+    assert plan.w2 == (inner, c, 2 * inner, 64, cols)
+    assert plan.x.args(77) == [77, c, m, 2 * c, 64, 64]
+    # whole 8-row swizzle blocks per box
+    assert plan.w1.box_rows % 8 == 0 and plan.w2.box_rows % 8 == 0
+    assert plan.blocks % cl == 0
+    assert plan.blocks // cl * 64 >= m > (plan.blocks // cl - 1) * 64
+    turn = ff.turn_cols(c)
+    assert plan.turns * turn == inner and turn == 2 * cl * ff.GATED
+    chunks = turn // 64
+    for r in range(cl):  # block r's loads, in order: its two warpgroups alternate
+        for slots in (plan.w1_turn, plan.w2_turn):
+            mine = [s[1] - 2 * r for s in slots if s[1] // 2 == r]
+            assert mine == [i % 2 for i in range(len(mine))]
+    # w1: each warpgroup takes every 64-column slice of C once
+    for q in range(2 * cl):
+        assert [k for _, wg, k in plan.w1_turn if wg == q] == list(range(c // 64))
+    # inner columns: turn t, warpgroup q gates [turn t + 32 q, + 32)
+    gated = torch.zeros(inner, dtype=torch.int32)
+    for t in range(plan.turns):
+        for q in range(2 * cl):
+            lo = turn * t + ff.GATED * q
+            gated[lo:lo + ff.GATED] += 1
+    assert bool((gated == 1).all())
+    # w2: a warpgroup owns its output columns and loads them once per chunk
+    # of the turn's gated tile
+    out = torch.zeros(c, dtype=torch.int32)
+    for q in range(2 * cl):
+        mine = [(row, kc) for _, wg, row, kc in plan.w2_turn if wg == q]
+        assert mine == [(q * cols, kc) for kc in range(chunks)]
+        out[q * cols:(q + 1) * cols] += 1
+    assert bool((out == 1).all())
+    # shared memory: x, the double-buffered gated tile, both rings, the
+    # barriers, 1 KB to align
+    assert plan.w1_stages % 2 == 0 and plan.w2_stages % 2 == 0
+    assert plan.smem == (c * 128 + 2 * chunks * 8192 + plan.w2_stages * chunks * cols * 128
+                         + plan.w1_stages * 8192
+                         + (2 * plan.w1_stages + 2 * plan.w2_stages + 3) * 8 + 1024)
+    assert plan.smem <= 232448
+    # the w1 ring holds a whole turn's slots where C allows (C=320: 10);
+    # C=640 leaves it two slots a warpgroup
+    assert plan.w1_stages >= (4 if c == 640 else min(16, 2 * (c // 64)))
+    # a w2 slot holds a warpgroup's rows for a whole turn: two turns each
+    # (C=640: one)
+    assert plan.w2_stages * chunks == 4
+
+
+@pytest.mark.parametrize("m, c, inner", [(4096, 1280, 5120), (16384, 640, 2560 + 64),
+                                         (64, 96, 384), (64, 320, 1000), (0, 320, 1280)])
+def test_ff_plan_refuses_what_does_not_fit(m, c, inner):
+    assert not ff.ff_fits(m, c, inner)
+    with pytest.raises(ValueError, match="does not fit"):
+        ff.ff_plan(m, c, inner)
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm: lanes per row
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("c, elem, lanes", [(320, 2, 8), (640, 2, 16), (1280, 2, 32),
+                                            (768, 2, 32), (96, 4, 8), (192, 4, 16),
+                                            (384, 4, 32), (768, 4, 32), (2048, 2, 32),
+                                            (64, 2, 8)])
+def test_ln_plan_rows_per_warp(c, elem, lanes):
+    """Narrow rows go several to a warp (the UNet's C=320: four; ConvNeXt's
+    fp32 C=96: four); every 16-byte vector of a row belongs to one lane, at
+    most LN_MAX_VECS a lane."""
+    assert norms.ln_plan(c, elem) == lanes
+    vecs = c * elem // 16
+    owned = sorted(sub + i * lanes for sub in range(lanes) for i in range(norms.LN_MAX_VECS)
+                   if sub + i * lanes < vecs)
+    assert owned == list(range(vecs))
+
+
+@pytest.mark.parametrize("c, elem", [(100, 2), (2560, 2), (1026, 4), (7, 4)])
+def test_ln_plan_sends_odd_widths_to_the_generic_loop(c, elem):
+    assert norms.ln_plan(c, elem) == 0
+
+
+# ---------------------------------------------------------------------------
+# routing by dtype (bf16 to the kernels, any other dtype plain)
+# ---------------------------------------------------------------------------
+
+
+def test_norms_route_by_dtype():
+    bf, fp, half = (torch.empty(1, 4, 8, dtype=d) for d in (torch.bfloat16, torch.float32,
+                                                            torch.float16))
+    assert pnn.takes_kernel(bf) and not pnn.takes_kernel(fp) and not pnn.takes_kernel(half)
+    assert (pnn.takes_kernel(bf, fp32_too=True) and pnn.takes_kernel(fp, fp32_too=True)
+            and not pnn.takes_kernel(half, fp32_too=True))
+    # one rule for the norms, flash attention and the feed-forward
+    assert kernels.kernel_dtype(torch.bfloat16) and not kernels.kernel_dtype(torch.float32)
+    assert kernels.kernel_dtype(torch.float32, fp32_too=True)
+    assert not kernels.kernel_dtype(torch.float16, fp32_too=True)
+    with pnn.plain_kernels():
+        assert not pnn.takes_kernel(bf) and not pnn.takes_kernel(fp, fp32_too=True)
+
+
+@pytest.mark.parametrize("impl, n, m, dtype, c, labels, mask, want", [
+    ("kernel", 4096, 4096, torch.bfloat16, 40, None, None, "split"),
+    ("kernel", 1024, 1208, torch.bfloat16, 80, None, None, "packed"),
+    ("kernel", 4096, 4280, torch.bfloat16, 40, "labels", None, "split"),
+    ("kernel", 256, 256, torch.bfloat16, 160, None, None, "plain"),      # ds4: short
+    ("kernel", 4096, 77, torch.bfloat16, 40, None, None, "plain"),       # cross-attention
+    ("kernel", 4096, 4280, torch.bfloat16, 40, None, "mask", "plain"),   # dense mask
+    ("kernel", 4096, 4096, torch.float32, 40, None, None, "plain"),      # fp32 compute
+    ("kernel", 64, 248, torch.float32, 40, "labels", None, "plain"),
+    ("kernel_train", 4096, 4096, torch.bfloat16, 40, None, None, "train"),
+    ("kernel_train", 1024, 1208, torch.bfloat16, 80, None, None, "train"),
+    ("kernel_train", 4096, 4096, torch.float32, 40, None, None, "plain"),
+    ("plain", 4096, 4096, torch.bfloat16, 40, None, None, "plain"),
+])
+def test_flash_route(impl, n, m, dtype, c, labels, mask, want):
+    assert flash_route(impl, n, m, dtype, c, labels, mask) == want

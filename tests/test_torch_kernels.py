@@ -417,9 +417,11 @@ def test_norm_vjp_matches_pallas_custom_vjp(kind, shape, kw):
 
 
 def test_ff_geglu_vjp_matches_erf_model_and_pallas_custom_vjp():
-    """GEGLU gradients (CPU wrapper and PlainVJP) against jax.vjp of the JAX
-    model's exact-erf FF (1e-4) and of the Pallas kernel's custom VJP, whose
-    tanh GELU differs by the approximation (GELU_TANH_REL)."""
+    """GEGLU gradients (CPU wrapper, and PlainVJP with the unfused
+    compute-dtype formula the CUDA route recomputes) against jax.vjp of the
+    JAX model's exact-erf FF (1e-4) and of the Pallas kernel's custom VJP,
+    whose tanh GELU differs by the approximation (GELU_TANH_REL); fp32
+    inputs here, bf16 in the next test."""
     import jax
 
     from instancediffusion_tpu_torch.kernels._vjp import PlainVJP
@@ -441,7 +443,7 @@ def test_ff_geglu_vjp_matches_erf_model_and_pallas_custom_vjp():
         ts = [torch.from_numpy(a).requires_grad_(True)
               for a in (x, w1.T.copy(), b1, w2.T.copy(), b2)]
         fn = ff.fused_ff_geglu if route == "wrapper" else (
-            lambda *a: PlainVJP.apply(ff.ff_geglu_plain, ff.ff_geglu_plain, *a))
+            lambda *a: PlainVJP.apply(ff.ff_geglu_plain, ff.ff_geglu_unfused, *a))
         fn(*ts).backward(torch.from_numpy(g))
         grads = [ts[0].grad, ts[1].grad.T, ts[2].grad, ts[3].grad.T, ts[4].grad]
         for port, e_ref, t_ref in zip(grads, erf_ref, tanh_ref):
@@ -455,15 +457,116 @@ def jfa_ff():
     return geglu_ff
 
 
+# bf16 on both sides: each product's result and the gated intermediate are
+# rounded to bf16 (relative 2^-9 each), and the two frameworks sum in another
+# order; the JAX unfused formula also uses the tanh GELU (GELU_TANH_REL)
+BF16_ROUTE_REL = 2e-2
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+
+def test_ff_geglu_bf16_vjp_matches_jax_vjp_of_unfused():
+    """The K5 gradient on the card is autograd of `ff_geglu_unfused`,
+    recomputed in the compute dtype with fp32 accumulation, as the JAX
+    package's `jax.vjp(_ff_unfused)`: on bf16 inputs the forward and every
+    gradient agree within BF16_ROUTE_REL of the largest reference value, and
+    no tensor of the recompute is fp32."""
+    import jax
+
+    from instancediffusion_tpu_torch.kernels._vjp import PlainVJP
+
+    rng = np.random.default_rng(31)
+    c, inner = 64, 256
+    x, g = _rand(rng, 2, 40, c), _rand(rng, 2, 40, c)
+    w1, b1 = _rand(rng, c, 2 * inner, scale=c ** -0.5), _rand(rng, 2 * inner, scale=0.1)
+    w2, b2 = _rand(rng, inner, c, scale=inner ** -0.5), _rand(rng, c, scale=0.1)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in (x, w1, b1, w2, b2)]
+    ref_out, vjp = jax.vjp(jfa_ff()._ff_unfused, *jargs)
+    ref = vjp(jnp.asarray(g, jnp.bfloat16))
+    ts = [_bf16(a).requires_grad_(True) for a in (x, w1.T.copy(), b1, w2.T.copy(), b2)]
+    out = PlainVJP.apply(ff.ff_geglu_unfused, ff.ff_geglu_unfused, *ts)
+    assert out.dtype == torch.bfloat16
+    _grad_close(out.float(), np.asarray(ref_out, np.float32), rel=BF16_ROUTE_REL)
+    out.backward(_bf16(g))
+    grads = [ts[0].grad, ts[1].grad.T, ts[2].grad, ts[3].grad.T, ts[4].grad]
+    for port, r in zip(grads, ref):
+        assert port.dtype == torch.bfloat16
+        _grad_close(port.float(), np.asarray(r, np.float32), rel=BF16_ROUTE_REL)
+
+
+@pytest.mark.parametrize("n,c", [(64, 64), (40, 96)])
+def test_ff_geglu_unfused_matches_jax_unfused(n, c):
+    """The unfused route (what `ff_fits` sends away from the kernel) against
+    the JAX package's `_ff_unfused`: in fp32 within the tanh-vs-erf GELU
+    difference, in bf16 within BF16_ROUTE_REL."""
+    rng = np.random.default_rng(32)
+    inner = 4 * c
+    x = _rand(rng, 2, n, c)
+    w1, b1 = _rand(rng, c, 2 * inner, scale=c ** -0.5), _rand(rng, 2 * inner, scale=0.1)
+    w2, b2 = _rand(rng, inner, c, scale=inner ** -0.5), _rand(rng, c, scale=0.1)
+    t = torch.from_numpy
+    ref = jfa_ff()._ff_unfused(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)))
+    out = ff.ff_geglu_unfused(t(x), t(w1.T.copy()), t(b1), t(w2.T.copy()), t(b2))
+    _grad_close(out, ref, rel=GELU_TANH_REL)
+    # and exactly the plain version's formula in fp32
+    _close(out, ff.ff_geglu_plain(t(x), t(w1.T.copy()), t(b1), t(w2.T.copy()), t(b2)).numpy())
+    ref16 = jfa_ff()._ff_unfused(*(jnp.asarray(a, jnp.bfloat16) for a in (x, w1, b1, w2, b2)))
+    out16 = ff.ff_geglu_unfused(*(_bf16(a) for a in (x, w1.T.copy(), b1, w2.T.copy(), b2)))
+    assert out16.dtype == torch.bfloat16
+    _grad_close(out16.float(), np.asarray(ref16, np.float32), rel=BF16_ROUTE_REL)
+
+
+@pytest.mark.parametrize("masked,pre_scaled", [(False, False), (True, False), (False, True)])
+def test_routed_sdpa_matches_jax_sdpa_xla_in_bf16(masked, pre_scaled):
+    """`sdpa_xla`, the route of every attention call the flash kernels do not
+    take, at the JAX package's precision: bf16 operands, fp32 scores and
+    softmax, probabilities rounded to bf16 before P V, a bf16 result. Held
+    to JAX's `sdpa_xla` on the same bf16 inputs within BF16_ROUTE_REL; in
+    fp32 the routed form and the all-fp32 oracle `sdpa_fp32` coincide."""
+    from instancediffusion_tpu.ops import attention as jattn
+    from instancediffusion_tpu_torch.ops.attention import sdpa_fp32, sdpa_xla
+
+    rng = np.random.default_rng(33)
+    q, k, v = (_rand(rng, 2, 2, s, 40) for s in (96, 77, 77))
+    mask = (rng.uniform(size=(2, 1, 96, 77)) > 0.3) if masked else None
+    if masked:
+        mask[..., 0] = True
+    jm = None if mask is None else jnp.asarray(mask)
+    tm = None if mask is None else torch.from_numpy(mask)
+    ref = jattn.sdpa_xla(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), mask=jm,
+                         pre_scaled=pre_scaled)
+    out = sdpa_xla(_bf16(q), _bf16(k), _bf16(v), mask=tm, pre_scaled=pre_scaled)
+    assert out.dtype == torch.bfloat16
+    _grad_close(out.float(), np.asarray(ref, np.float32), rel=BF16_ROUTE_REL)
+    # the oracle differs from the route only by the bf16 roundings
+    _grad_close(out.float(), sdpa_fp32(_bf16(q), _bf16(k), _bf16(v), mask=tm,
+                                       pre_scaled=pre_scaled).float().numpy(),
+                rel=BF16_ROUTE_REL)
+    t = torch.from_numpy
+    ref32 = jattn.sdpa_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask=jm,
+                           pre_scaled=pre_scaled)
+    _close(sdpa_xla(t(q), t(k), t(v), mask=tm, pre_scaled=pre_scaled), ref32)
+    _close(sdpa_fp32(t(q), t(k), t(v), mask=tm, pre_scaled=pre_scaled), ref32)
+
+
 def test_kernel_train_route_and_checks():
     """impl="kernel_train" sends long calls to the trainable kernels (their
     CPU route equals plain attention) and refuses what they do not take."""
     from instancediffusion_tpu_torch.ops.attention import multi_head_attention
 
     rng = np.random.default_rng(25)
-    q, k = (torch.from_numpy(_rand(rng, 1, s, 64)) for s in (1024, 600))
+    # bf16: the kernels' dtype (fp32 calls stay on the plain route)
+    q, k = (torch.from_numpy(_rand(rng, 1, s, 64)).bfloat16() for s in (1024, 600))
     out = multi_head_attention(q, k, k, 2, impl="kernel_train")
-    _close(out, multi_head_attention(q, k, k, 2, impl="plain").numpy())
+    # the CPU route is the all-fp32 oracle; the plain route rounds the
+    # probabilities to bf16 first
+    _grad_close(out.float(), multi_head_attention(q, k, k, 2, impl="plain").float().numpy(),
+                rel=BF16_ROUTE_REL)
+    q32 = q.float()
+    assert torch.equal(multi_head_attention(q32, q32, q32, 2, impl="kernel_train"),
+                       multi_head_attention(q32, q32, q32, 2, impl="plain"))
     with pytest.raises(ValueError, match="unscaled"):
         multi_head_attention(q, k, k, 2, impl="kernel_train", pre_scaled=True)
     with pytest.raises(ValueError, match="dense mask"):

@@ -13,10 +13,15 @@ META's boxes on the 8 conditional rows; SDPA on the same self and fuser
 views as a yardstick), the packed kernel at B=16 (ds2
 self and the 1208-key fuser), the training forward with log-sum-exp at B=4
 (ds1 and ds2, self and fuser), GroupNorm at every shape of the B=16 UNet
-forward and of the VAE decoder at B=8; then the full-width B=16 gate-1 UNet
-forward on densified random weights (median of 10, CUDA events). Prints one
-JSON line. Run it as parent, change, change, parent in one command. Imports
-no JAX.
+forward and of the VAE decoder at B=8; LayerNorm at the six row shapes of
+that forward beside F.layer_norm; the GEGLU feed-forward as the UNet calls it
+at the four levels' B=16 shapes (`ff_geglu` where the checkout has the switch,
+else `fused_ff_geglu`) beside the unfused three-call bf16 route; then the
+full-width B=16 gate-1 UNet forward on densified random weights (median of
+10, CUDA events), and with --profile the device time of one such forward by
+kernel (torch.profiler; the 25 largest and the busy share). Prints one JSON
+line. Run it as parent, change, change, parent in one command. Imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -59,10 +64,40 @@ def device_ms(torch, fn, reps: int = REPS) -> float:
     raise RuntimeError("device_ms: the profiler saw no device time")
 
 
+LN_UNET_B16 = ((4096, 320), (4280, 320), (1024, 640), (1208, 640), (256, 1280), (440, 1280))
+FF_UNET_B16 = (("ds1", 4096, 320), ("ds2", 1024, 640), ("ds4", 256, 1280), ("ds8", 64, 1280))
+
+
+def forward_profile(torch, fwd, top: int = 25) -> dict:
+    """Device time of one forward by kernel name, and the busy share of the
+    window (device time over the host's wall time of the same forwards)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fwd()
+    torch.cuda.synchronize()
+    reps = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fwd()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    rows = sorted(((e.device_time_total / 1e3 / reps, e.count // reps, e.key)
+                   for e in prof.key_averages() if e.device_time_total > 0), reverse=True)
+    total = sum(r[0] for r in rows)
+    return {"forward_device_ms": total, "forward_wall_ms": wall_ms,
+            "busy_share": total / wall_ms,
+            "kernels": [{"ms": round(ms, 4), "calls": n, "name": name[:90]}
+                        for ms, n, name in rows[:top]]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
     ap.add_argument("--tag", default=None)
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -71,6 +106,7 @@ def main() -> int:
     import chip_smoke
     from instancediffusion_tpu_torch.config import Config, apply_test_preset
     from instancediffusion_tpu_torch.kernels import flash_attention as fa
+    from instancediffusion_tpu_torch.kernels import geglu_ff as ff
     from instancediffusion_tpu_torch.kernels import norms
     from instancediffusion_tpu_torch.models import unet as unet_lib
 
@@ -114,6 +150,28 @@ def main() -> int:
                     norms.fused_group_norm(x, sc, bi, 32, e, a))
                 del x
 
+        F = torch.nn.functional
+        for n, c in LN_UNET_B16:
+            x = (torch.randn((16, n, c), generator=g, device=dev) * 2 + 0.3).bfloat16()
+            sc, bi = rnd(c), rnd(c)
+            out[f"k4_16x{n}x{c}_ms"] = device_ms(
+                torch, lambda x=x, sc=sc, bi=bi: norms.fused_layer_norm(x, sc, bi, 1e-5))
+            out[f"layer_norm_16x{n}x{c}_ms"] = device_ms(
+                torch, lambda x=x, sc=sc, bi=bi: F.layer_norm(x, (x.shape[-1],), sc, bi, 1e-5))
+        ff_call = getattr(ff, "ff_geglu", ff.fused_ff_geglu)
+
+        def unfused(x, w1, b1, w2, b2):
+            a, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
+            return F.linear(a * F.gelu(gate), w2, b2)
+
+        for name, n, c in FF_UNET_B16:
+            inner = 4 * c
+            a = (rnd(16, n, c), rnd(2 * inner, c) * c ** -0.5, rnd(2 * inner) * 0.1,
+                 rnd(c, inner) * inner ** -0.5, rnd(c) * 0.1)
+            out[f"k5_b16_{name}_ms"] = device_ms(torch, lambda a=a: ff_call(*a))
+            out[f"ff_unfused_b16_{name}_ms"] = device_ms(torch, lambda a=a: unfused(*a))
+            del a
+
         cfg = apply_test_preset(Config(), "box").model
         gen = torch.Generator(device=dev).manual_seed(0)
         model = unet_lib.UNet(cfg, generator=gen, device=dev).to(torch.bfloat16).eval()
@@ -125,6 +183,8 @@ def main() -> int:
         fwd = lambda: unet_lib.apply_unet(model, cfg, x, t, ctx, gate_scale=1.0,
                                           precomputed_objs=objs)
         out["unet_b16_gate1_ms"] = chip_smoke.median_ms(fwd, reps=10)
+        if args.profile:
+            out["profile"] = forward_profile(torch, fwd)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -29,11 +29,13 @@ CATEGORIES = (
     ("K6 flash forward + lse", ("flash_fwd_sm90<",)),
     ("dq kernel", ("flash_bwd_dq",)),
     ("dk/dv kernel", ("flash_bwd_dkv",)),
-    ("GEGLU kernel + reduce", ("geglu_ff_kernel", "ff_reduce_kernel")),
+    ("GEGLU kernel", ("geglu_ff",)),
     ("GroupNorm kernel", ("::gn_kernel<",)),
-    ("LayerNorm kernel", ("ln_kernel",)),
+    ("LayerNorm kernel", ("ln_rows_kernel", "ln_generic_kernel", "ln_kernel")),
     ("optimizer (foreach / multi-tensor)", ("multi_tensor", "foreach")),
     ("convolution (cuDNN)", ("conv", "cudnn", "implicit_gemm", "wgrad", "dgrad", "fprop")),
+    # fp32 products outside the tensor cores (TF32 is off): cuBLAS's SIMT sgemm
+    ("GEMM, fp32 SIMT (cuBLAS)", ("sgemm", "simt")),
     ("GEMM (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "splitKreduce", "nvjet")),
     ("reduction", ("reduce", "softmax")),
     ("copy / cast", ("copy", "Memcpy", "Memset", "cat")),
