@@ -12,7 +12,9 @@ Phases, in order (each prints its lines; any failure exits non-zero):
              against the stated tolerance, median kernel and plain times;
              then the redesigned kernels at the main path's own batches
              (attention and GroupNorm at the UNet's B=16, the training
-             forward at B=4, GroupNorm at the VAE decoder's B=8), each held
+             forward and the backward kernels dq and dk/dv, plain and
+             labeled, at B=4 with SDPA's backward as their library time,
+             GroupNorm at the VAE decoder's B=8), each held
              to its plain version and timed by device time (the kernels'
              durations in torch.profiler over 20 back-to-back launches),
              beside events around those 20 launches, one wrapper-timed call
@@ -131,16 +133,16 @@ KERNELS = {
         "cuda", "instancediffusion_tpu_torch/csrc/flash_fwd_sm90.cuh",
         "instancediffusion_tpu/kernels/flash_attention.py:580"),
     "flash_attention_bwd_dq": (
-        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention_bwd.cu",
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_bwd_sm90.cuh",
         "instancediffusion_tpu/kernels/flash_attention.py:594"),
     "flash_attention_bwd_dq_labeled": (
-        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention_bwd.cu",
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_bwd_sm90.cuh",
         "instancediffusion_tpu/kernels/flash_attention.py:753"),
     "flash_attention_bwd_dkv": (
-        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention_bwd.cu",
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_bwd_sm90.cuh",
         "instancediffusion_tpu/kernels/flash_attention.py:651"),
     "flash_attention_bwd_dkv_labeled": (
-        "cuda", "instancediffusion_tpu_torch/csrc/flash_attention_bwd.cu",
+        "cuda", "instancediffusion_tpu_torch/csrc/flash_bwd_sm90.cuh",
         "instancediffusion_tpu/kernels/flash_attention.py:793"),
     "proj_split": (
         "cuda", "instancediffusion_tpu_torch/csrc/head_layout.cu",
@@ -172,6 +174,12 @@ LSE_ATOL = 1e-3  # fp32 log-sum-exp (base 2): summation order only
 TRAIN_LOSS_REL_TOL = 1e-2
 TRAIN_GRAD_REL_TOL = 5e-2
 TRAIN_B = 4
+# the training step's long attentions: (label, N, M, head dim, labeled)
+TRAIN_ATTN = (("ds1 self 4096x4096", 4096, 4096, 40, False),
+              ("ds1 fuser 4096x4280", 4096, 4280, 40, False),
+              ("ds2 self 1024x1024", 1024, 1024, 80, False),
+              ("ds2 fuser 1024x1208", 1024, 1208, 80, False),
+              ("ds1 fuser 4096x4280 labeled", 4096, 4280, 40, True))
 TRAIN_IMAGE = 512
 TRAIN_STEPS = 10
 # launches per full-width training step with remat: 20 long attentions per
@@ -297,7 +305,7 @@ def device_ms(torch, fn, reps: int = MAIN_REPS) -> float:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # CUPTI now and then delivers no kernel record: measure again
+    for _ in range(10):  # CUPTI now and then delivers no kernel record: measure again
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -626,6 +634,7 @@ def _main_cases(torch, dev, randn, case):
             BF16_REL_TOL, _attn_work("fwd_lse", TRAIN_B, 8, n, m, c),
             lambda need=need: sdpa(*need)))
         cases[-1]["lse_at"] = 1
+    cases += _bwd_main_cases(torch, dev, randn, case, heads)
     for bb, shapes in ((b, GN_UNET_B16), (N_IMAGES, GN_VAE_B8)):
         for n, c, eps, act in shapes:
             x = randn(bb, n, c, std=3.0) + 0.5
@@ -654,6 +663,51 @@ def _main_cases(torch, dev, randn, case):
             lambda x=x, sc=sc, bi=bi: F.layer_norm(x, (x.shape[-1],), sc, bi, 1e-5), PEAK_FP32))
     for cs in cases:
         cs["main"] = True
+    return cases
+
+
+def _bwd_main_cases(torch, dev, randn, case, heads):
+    """dq and dk/dv (and their labeled forms) at the training batch B=4 and
+    the step's five attention shapes, on the kernel forward's residuals;
+    dk/dv takes delta from the dq kernel as the training backward does. The
+    labeled fuser has META's labels on two rows and open labels on two.
+    Library: SDPA's backward on the same views (`sdpa_bwd`: device time of
+    forward + backward less the forward's), one number for the pair."""
+    import torch.nn.functional as F
+
+    from instancediffusion_tpu_torch.kernels import flash_attention as fa
+    from instancediffusion_tpu_torch.ops.attention import labels_to_dense
+
+    bits, open_ = meta_labels(torch, dev, 64)
+    labels = (bits.repeat_interleave(TRAIN_B // 2, 0), open_.repeat_interleave(TRAIN_B // 2, 0))
+    cases = []
+    for label, n, m, c, labeled in TRAIN_ATTN:
+        q, k, v, do = (heads(randn(TRAIN_B, s, 8 * c), c) for s in (n, m, m, n))
+        lb = labels if labeled else None
+        mask = labels_to_dense(*lb)[:, :, :n, :m] if labeled else None
+        with torch.no_grad():
+            out, lse = fa.flash_attention_fwd_lse(q, k, v, lb)
+            delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, lb, with_delta=True)[1]
+        need = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+        def sdpa_fwd(need=need, mask=mask):
+            return F.scaled_dot_product_attention(*need, attn_mask=mask)
+
+        def sdpa_fwd_bwd(need=need, mask=mask, do=do):
+            F.scaled_dot_product_attention(*need, attn_mask=mask).backward(do)
+
+        res = (q, k, v, out, lse, do, lb)
+        sfx = "_labeled" if labeled else ""
+        for kind, kern, plain in (
+                ("dq", lambda r=res: fa.flash_attention_bwd_dq(*r),
+                 lambda r=res: fa.flash_attention_bwd_plain(*r)[0]),
+                ("dkv", lambda r=res, d=delta: fa.flash_attention_bwd_dkv(*r, delta=d),
+                 lambda r=res: fa.flash_attention_bwd_plain(*r)[1:])):
+            cases.append(case(f"flash_attention_bwd_{kind}{sfx}", f"B={TRAIN_B} {label}", kern,
+                              plain, GRAD_REL_TOL, _attn_work(kind, TRAIN_B, 8, n, m, c, mask),
+                              None))
+            cases[-1].update(sdpa_bwd=(f"B={TRAIN_B} {label}", sdpa_fwd, sdpa_fwd_bwd),
+                             library_name="SDPA backward (fwd+bwd less fwd), both kernels")
     return cases
 
 
@@ -716,11 +770,7 @@ def _train_cases(torch, dev, randn, case, labels64):
     from instancediffusion_tpu_torch.ops.attention import labels_to_dense
 
     cases = []
-    for label, n, m, c, labeled in (("ds1 self 4096x4096", 4096, 4096, 40, False),
-                                    ("ds1 fuser 4096x4280", 4096, 4280, 40, False),
-                                    ("ds2 self 1024x1024", 1024, 1024, 80, False),
-                                    ("ds2 fuser 1024x1208", 1024, 1208, 80, False),
-                                    ("ds1 fuser 4096x4280 labeled", 4096, 4280, 40, True)):
+    for label, n, m, c, labeled in TRAIN_ATTN:
         heads = lambda t, c=c: t.reshape(2, t.shape[1], 8, c).transpose(1, 2)
         q, k, v, do = (heads(randn(2, s, 8 * c)) for s in (n, m, m, n))
         labels = labels64 if labeled else None
@@ -771,6 +821,7 @@ def phase_kernels(torch, dev) -> dict:
         f"{clock / 1e6:.0f} MHz (nvidia-smi clocks.max.sm)")
     results = {}
     failures = []
+    sdpa_bwd_ms = {}
     for cs in _cases(torch, dev):
         name, label, kern, plain, tol = (cs[k] for k in ("name", "label", "kern", "plain",
                                                           "tol"))
@@ -792,6 +843,11 @@ def phase_kernels(torch, dev) -> dict:
             dev_ms, ev_ms, wrap_ms = (device_ms(torch, kern), events_ms(torch, kern),
                                       median_ms(kern))
             lib_ms = None if cs["library"] is None else device_ms(torch, cs["library"])
+            if "sdpa_bwd" in cs:  # derived once per shape, shared by dq and dk/dv
+                key, fwd, fwd_bwd = cs["sdpa_bwd"]
+                if key not in sdpa_bwd_ms:
+                    sdpa_bwd_ms[key] = device_ms(torch, fwd_bwd) - device_ms(torch, fwd)
+                lib_ms = sdpa_bwd_ms[key]
             if "main_device_ms" not in entry:
                 entry.update(main_label=label, main_device_ms=dev_ms, main_library_ms=lib_ms,
                              main_bound_ms=bound_ms, main_bound_by=bound_by)
@@ -804,6 +860,9 @@ def phase_kernels(torch, dev) -> dict:
                     kern()
                     enc.append(fa.encode_us())
                 extra = f" tensor_map_encode_us={sum(enc) / len(enc):.2f} (host, per call)"
+            if name.startswith("flash_attention_bwd") and entry["main_label"] == label:
+                kern()
+                extra = f" tensor_map_encode_us={fa.bwd_encode_us():.2f} (host, one call)"
             ratio = "" if lib_ms is None else f" kernel/library={dev_ms / lib_ms:.3f}"
             lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
             if "library_name" in cs:
@@ -1442,6 +1501,7 @@ def phase_train(torch, dev, card: str) -> tuple[dict, dict]:
     timed = [pts.sample_draws(gen, TRAIN_B, latent) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # state, batch, draws and anything earlier left
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     metrics = [step(state, batch, d)[1] for d in timed]
@@ -1463,7 +1523,8 @@ def phase_train(torch, dev, card: str) -> tuple[dict, dict]:
                            f"(expected {want}, {FF_PER_STEP[FF_ROUTE]})")
     log(f"train (c): B={TRAIN_B} {TRAIN_IMAGE}px remat bf16, {TRAIN_STEPS} steps in {secs:.3f}s: "
         f"{secs / TRAIN_STEPS:.4f} s/step, {TRAIN_B * TRAIN_STEPS / secs:.3f} samples/s, "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB on {card}; losses "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB ({held / 2**30:.2f} allocated before "
+        f"the steps) on {card}; losses "
         f"{loss_list}; launches per step {per}, unfused feed-forwards per step {routed}")
 
     # (d) masked training: the "mask" preset with use_masked_att

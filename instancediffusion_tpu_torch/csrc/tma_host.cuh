@@ -12,8 +12,13 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The encoder, or nullptr when the installed CUDA has none.
+// The encoder, or nullptr when the installed CUDA has none. The encoder is a
+// libcuda call: the calling thread's device context is made current first (a
+// thread that has made no runtime call yet, such as autograd's backward
+// thread, has none, and libcuda then refuses the map).
 inline EncodeTiled encoder() {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return nullptr;
     static EncodeTiled fn = nullptr;
     if (fn == nullptr) {
         void* p = nullptr;

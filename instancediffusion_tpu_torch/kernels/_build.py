@@ -37,10 +37,10 @@ BUILD_INFO: dict = {}
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "idt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _P],
-    "idt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _P, _F, _P],
-    "idt_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _P, _F, _P],
+    "idt_flash_bwd_dq": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _F, _P],
+    "idt_flash_bwd_dkv": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _F, _P],
     "idt_group_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "idt_layer_norm": [_P, _P, _P, _P, _LL, _I, _F, _I, _I, _I, _P],
     "idt_geglu_ff": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -127,8 +127,9 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         handle.idt_error_string.argtypes = [ctypes.c_int]
         handle.idt_error_string.restype = ctypes.c_char_p
-        handle.idt_flash_encode_us.argtypes = []
-        handle.idt_flash_encode_us.restype = ctypes.c_double
+        for name in ("idt_flash_encode_us", "idt_flash_bwd_encode_us"):
+            getattr(handle, name).argtypes = []
+            getattr(handle, name).restype = ctypes.c_double
         _LIB = handle
     return _LIB
 

@@ -30,11 +30,13 @@ Training (`flash_attention_trainable`, `_labeled`): autograd Functions over
 the same (B,H,N,c) head views, unscaled q, no kv_len padding. Their forward
 is the same kernel's WITH_LSE instantiation (it replaces `_fwd_with_stats`)
 and also writes the fp32 (B,H,N) log-sum-exp, in base 2 of the scaled
-scores (`flash_attention_fwd_lse_plain` says how). Their backward computes
-delta = rowsum(dO * O) in fp32 here and launches the dq kernel and the
-dk/dv kernel of `csrc/flash_attention_bwd.cu` (they replace `_flash_bwd`),
-which write dq, dk and dv into (B,N,H,c) buffers; the labels get no
-gradient. The plain versions are `flash_attention_fwd_lse_plain` and
+scores (`flash_attention_fwd_lse_plain` says how). Their backward launches
+the dq kernel and the dk/dv kernel of `csrc/flash_bwd_sm90.cuh` (host side
+`csrc/flash_attention_bwd.cu`; they replace `_flash_bwd`): TMA + wgmma, one
+producer thread, tiles planned by `bwd_plan`. The dq kernel also computes
+delta = rowsum(dO * O) in fp32 for its rows and writes it for the dk/dv
+kernel; both write into (B,N,H,c) buffers; the labels get no gradient. The
+plain versions are `flash_attention_fwd_lse_plain` and
 `flash_attention_bwd_plain` (`_flash_bwd`'s formulas in fp32); on the CPU
 the trainable functions are autograd of `sdpa_fp32`.
 """
@@ -155,6 +157,72 @@ def tma_plan(sizes, strides, c, rows, box_rows=TMA_BOX_ROWS, elem_bytes=2):
     box = (TMA_BOX_COLS, *(box_rows if name == "row" else 1 for name, _, _ in order))
     slot = {name: i + 1 for i, (name, _, _) in enumerate(order)}
     return TmaPlan(dims, byte_strides, box, (slot["head"], slot["row"], slot["batch"]))
+
+
+BWD_SMALL = 256  # a ring stage's slot for one tile's lse, delta, label bits or open
+BWD_MAX_SMEM = 232448  # shared bytes a block may use on the H100
+
+
+class BwdPlan(NamedTuple):
+    """How one backward kernel launch tiles its shape (`csrc/flash_bwd_sm90.cuh`
+    holds the same layout and refuses a launch whose plan differs). kind:
+    "dq" (a block owns q rows, K and V stream) or "dkv" (a block owns keys, Q
+    and dO stream). block_rows: rows a block owns (64 per consumer
+    warpgroup); tile_rows: rows of each streamed tile; stages: ring stages;
+    smem: shared bytes; grid: (blocks over the owned rows, B*H); threads: a
+    producer warpgroup and the consumer warpgroups; tiles: streamed tiles per
+    block; acc_regs: fp32 accumulator registers a consumer thread holds at
+    once (score products and outputs), against reg_limit, what ptxas gives a
+    thread of a block of `threads`."""
+    kind: str
+    block_rows: int
+    tile_rows: int
+    stages: int
+    smem: int
+    grid: tuple
+    threads: int
+    tiles: int
+    acc_regs: int
+    reg_limit: int
+
+
+def bwd_plan(kind, b, h, n, m, c, labeled=False) -> BwdPlan:
+    """The plan of the dq (`kind="dq"`) or dk/dv (`"dkv"`) kernel for q
+    (B,H,N,c) against k/v (B,H,M,c). Streamed tiles: dk/dv 64 q rows at c <=
+    48 and 32 above (S^T, dP^T, dK and dV then fit the registers), dq 64 keys
+    up to c = 96 and 32 above; a dk/dv block owns 128 keys (two consumer
+    warpgroups) up to c = 96 and 64 above. Raises on what the kernels do not
+    take."""
+    if kind not in ("dq", "dkv"):
+        raise ValueError(f"bwd_plan: kind {kind!r} is not 'dq' or 'dkv'")
+    if c % 8 or not 8 <= c <= _MAX_HEAD_DIM:
+        raise ValueError(f"bwd_plan: head dim {c} must be a multiple of 8 <= {_MAX_HEAD_DIM}")
+    if b * h > 65535:
+        raise ValueError(f"bwd_plan: B*H={b * h} exceeds the grid limit")
+    if n < 1 or m < 1:
+        raise ValueError(f"bwd_plan: empty attention ({n} x {m})")
+    atoms = -(-c // 64)
+    if kind == "dkv":
+        wgs = 2 if c <= 96 else 1
+        rows = 64 if c <= 48 else 32
+        res, smalls = 2, 4 if labeled else 2  # K, V; lse, delta (+ q bits, open)
+        own, stream = m, n
+        acc = rows + c  # S^T, dP^T (rows / 2 each), dK, dV (c / 2 each)
+    else:
+        wgs = 2
+        rows = 64 if c <= 96 else 32
+        res, smalls = 3, 2 if labeled else 0  # Q, dO, O (+ key bits, open)
+        own, stream = n, m
+        acc = rows + c // 2  # S, dP, dQ
+    block = 64 * wgs
+    tile = atoms * rows * 128
+    res_bytes = res * atoms * block * 128
+    stage = -(-(2 * tile + smalls * BWD_SMALL) // 1024) * 1024
+    stages = min(4, (200 * 1024 - res_bytes) // stage)
+    smem = res_bytes + stages * stage + (2 * stages + 1) * 8 + 1024
+    threads = 128 * (wgs + 1)
+    return BwdPlan(kind, block, rows, stages, smem, (-(-own // block), b * h), threads,
+                   -(-stream // rows), acc, 168 if threads > 256 else 255)
 
 
 def encode_us() -> float:
@@ -325,32 +393,74 @@ def _delta(out, dout):
     return (dout.float() * out.float()).sum(dim=-1).contiguous()
 
 
-def _launch_bwd(which, q, k, v, dout, lse, delta, grads, labels):
-    """which: "dq" (grads = (dq,)) or "dkv" (grads = (dk, dv)); every
-    tensor a (B,H,*,c) view."""
+def _rows_buffer(b, h, n, device):
+    """An fp32 (B,H,N) view whose rows are 16-byte multiples apart, as the
+    backward kernels' tensor maps of lse and delta need."""
+    return torch.empty((b, h, -(-n // 4) * 4), dtype=torch.float32, device=device)[..., :n]
+
+
+def _rows_ok(t):
+    """t is fp32 (B,H,N) with contiguous rows a multiple of 4 values apart."""
+    return (t.dtype == torch.float32 and t.dim() == 3 and t.stride(2) == 1
+            and t.stride(1) % 4 == 0 and t.stride(1) >= t.shape[2]
+            and t.stride(0) == t.shape[1] * t.stride(1) and t.data_ptr() % 16 == 0)
+
+
+def _kernel_rows(t):
+    """lse or delta as the backward kernels take it (`_rows_ok`): t itself,
+    or a copy with padded rows when N is not a multiple of 4."""
+    if _rows_ok(t):
+        return t
+    rows = _rows_buffer(*t.shape, t.device)
+    rows.copy_(t)
+    return rows
+
+
+def _launch_bwd(which, q, k, v, dout, lse, delta, grads, labels, out=None):
+    """which: "dq" (grads = (dq,); the kernel also writes delta from `out`)
+    or "dkv" (grads = (dk, dv); reads delta); every tensor a (B,H,*,c) view,
+    lse and delta fp32 (B,H,N) as `_kernel_rows` gives them."""
     name = f"flash_attention_bwd_{which}"
     b, h, n, c = q.shape
     m = k.shape[2]
-    _build.require_cuda(name, q, k, v, dout, *grads)
-    dq, dk, dv = (grads[0], None, None) if which == "dq" else (None, *grads)
-    views = (q, k, v, dout, dq if dq is not None else q, dk if dk is not None else k,
-             dv if dv is not None else v)
-    strides = _head_strides(*views)
-    _check_operands(name, views, strides, b, h, c)
-    arr = (ctypes.c_longlong * len(strides))(*strides)
+    views = (q, k, v, dout) + ((out,) if which == "dq" else ())
+    _build.require_cuda(name, *views, *grads)
+    strides = _head_strides(*views, *grads)
+    _check_operands(name, views + tuple(grads), strides, b, h, c)
+    for t in (lse, delta):
+        if not _rows_ok(t) or t.shape != (b, h, n):
+            raise ValueError(f"{name}: lse and delta must be fp32 {(b, h, n)} with rows "
+                             "16-byte multiples apart")
+    plan = bwd_plan(which, b, h, n, m, c, labels is not None)
+    # box rows of the q-side (q, dO, O) and the key-side (k, v) maps
+    qbox, kbox = ((plan.block_rows, plan.tile_rows) if which == "dq"
+                  else (plan.tile_rows, plan.block_rows))
+    maps = []
+    for t, rows, box in ((q, n, qbox), (k, m, kbox), (v, m, kbox), (dout, n, qbox)):
+        maps += tma_plan((b, h), _head_strides(t), c, rows, box).args(t.data_ptr())
+    if which == "dq":
+        maps += tma_plan((b, h), _head_strides(out), c, n, qbox).args(out.data_ptr())
+    maps = (ctypes.c_longlong * len(maps))(*maps)
+    gstrides = (ctypes.c_longlong * 6)(*strides[3 * len(views):], *([0] * (6 - 3 * len(grads))))
     bits_ptr, open_ptr, label_stride, name, _keep = _label_args(name, labels, q)
     lib = _build.lib()
-    common = (bits_ptr, open_ptr, label_stride, b, h, n, m, c, arr, float(1.0 / math.sqrt(c)),
-              _build.stream_of(q))
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr())
+    tail = (bits_ptr, open_ptr, label_stride, b, h, n, m, c, plan.tile_rows, plan.stages,
+            plan.smem, float(1.0 / math.sqrt(c)), _build.stream_of(q))
     with torch.cuda.device(q.device):
+        rows = (lse.data_ptr(), lse.stride(1), delta.data_ptr(), delta.stride(1))
         if which == "dq":
-            err = lib.idt_flash_bwd_dq(*ptrs, dq.data_ptr(), *common)
+            err = lib.idt_flash_bwd_dq(maps, *rows, grads[0].data_ptr(), gstrides, *tail)
         else:
-            err = lib.idt_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *common)
+            err = lib.idt_flash_bwd_dkv(maps, *rows, grads[0].data_ptr(), grads[1].data_ptr(),
+                                        gstrides, *tail)
     _build.check(err, name)
     LAUNCHES[name] += 1
+
+
+def bwd_encode_us() -> float:
+    """Host microseconds the last backward launch spent encoding its tensor
+    maps."""
+    return _build.lib().idt_flash_bwd_encode_us()
 
 
 def _grad_buffer(t):
@@ -366,25 +476,31 @@ def _kernel_dout(dout):
     return dout if ok else dout.contiguous()
 
 
-def flash_attention_bwd_dq(q, k, v, out, lse, dout, labels=None):
+def flash_attention_bwd_dq(q, k, v, out, lse, dout, labels=None, with_delta=False):
     """dq kernel (replaces `_bwd_dq_kernel`); the plain version's dq on the
-    CPU."""
+    CPU. with_delta: also return the fp32 (B,H,N) delta = rowsum(dO * O) the
+    kernel computes for the dk/dv kernel (`_delta` on the CPU)."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout, labels)[0]
-    dout = _kernel_dout(dout)
+        dq = flash_attention_bwd_plain(q, k, v, out, lse, dout, labels)[0]
+        return (dq, _delta(out, dout)) if with_delta else dq
     dq = _grad_buffer(q)
-    _launch_bwd("dq", q, k, v, dout, lse, _delta(out, dout), (dq,), labels)
-    return dq
+    delta = _rows_buffer(*lse.shape, q.device)
+    _launch_bwd("dq", q, k, v, _kernel_dout(dout), _kernel_rows(lse), delta, (dq,), labels,
+                out=out)
+    return (dq, delta) if with_delta else dq
 
 
-def flash_attention_bwd_dkv(q, k, v, out, lse, dout, labels=None):
+def flash_attention_bwd_dkv(q, k, v, out, lse, dout, labels=None, delta=None):
     """dk/dv kernel (replaces `_bwd_dkv_kernel`); the plain version's dk, dv
-    on the CPU."""
+    on the CPU. delta: the fp32 (B,H,N) rowsum(dO * O) (the dq kernel's, as
+    the training backward passes it), or None to compute it with `_delta`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, labels)[1:]
     dout = _kernel_dout(dout)
     dk, dv = _grad_buffer(k), _grad_buffer(v)
-    _launch_bwd("dkv", q, k, v, dout, lse, _delta(out, dout), (dk, dv), labels)
+    if delta is None:
+        delta = _delta(out, dout)
+    _launch_bwd("dkv", q, k, v, dout, _kernel_rows(lse), _kernel_rows(delta), (dk, dv), labels)
     return dk, dv
 
 
@@ -402,11 +518,8 @@ class _FlashTrainFn(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse, bits, open_ = ctx.saved_tensors
         labels = None if bits is None else (bits, open_)
-        dout = _kernel_dout(dout)
-        delta = _delta(out, dout)
-        dq, dk, dv = _grad_buffer(q), _grad_buffer(k), _grad_buffer(v)
-        _launch_bwd("dq", q, k, v, dout, lse, delta, (dq,), labels)
-        _launch_bwd("dkv", q, k, v, dout, lse, delta, (dk, dv), labels)
+        dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, dout, labels, with_delta=True)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, out, lse, dout, labels, delta)
         return dq, dk, dv, None, None
 
 

@@ -18,6 +18,7 @@ dim, with unscaled q.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from instancediffusion_tpu_torch.kernels import kernel_dtype
 
@@ -53,17 +54,36 @@ def sdpa_fp32(q, k, v, mask=None, pre_scaled=False):
     return torch.einsum("bhnm,bhmc->bhnc", attn, v.float()).to(q.dtype)
 
 
+KEY_PAD = 8  # fp32 score rows padded to 32 bytes keep cuBLAS on the tensor cores
+
+
+def padded_scores(q, k):
+    """q k^T of (G,N,c) x (G,M,c) as fp32 (G,N,M), with the key axis padded
+    by zero keys to a multiple of KEY_PAD and the scores sliced back. On the
+    card, 16-bit operands multiply on the tensor cores into fp32 (an fp32
+    result row of 77 scores, the ds1 cross-attention's, is not a 16-byte
+    multiple, and cuBLAS then takes a SIMT kernel); elsewhere the operands
+    are widened first. A zero key only adds a column that is cut off."""
+    m = k.shape[1]
+    kp = F.pad(k, (0, 0, 0, -m % KEY_PAD))
+    if q.is_cuda:
+        sim = torch.bmm(q, kp.transpose(1, 2), out_dtype=torch.float32)
+    else:
+        sim = torch.bmm(q.float(), kp.float().transpose(1, 2))
+    return sim[:, :, :m]
+
+
 class _ScoresFn(torch.autograd.Function):
     """q k^T of (G,N,c) x (G,M,c) 16-bit operands on the tensor cores with an
-    fp32 result (`bmm(out_dtype=float32)`, which autograd does not
-    differentiate itself). Backward: the fp32 score gradient rounded to the
-    compute dtype, as the flash backward kernels round theirs, then both
-    products in that dtype with fp32 accumulation."""
+    fp32 result (`padded_scores`: `bmm(out_dtype=float32)`, which autograd
+    does not differentiate itself). Backward: the fp32 score gradient rounded
+    to the compute dtype, as the flash backward kernels round theirs, then
+    both products in that dtype with fp32 accumulation."""
 
     @staticmethod
     def forward(ctx, q, k):
         ctx.save_for_backward(q, k)
-        return torch.bmm(q, k.transpose(1, 2), out_dtype=torch.float32)
+        return padded_scores(q, k)
 
     @staticmethod
     def backward(ctx, grad):

@@ -396,6 +396,117 @@ def test_training_kernels_match_plain_on_card(dev, case):
         assert (got.float() - want.float()).abs().max() <= GRAD_REL_TOL * want.float().abs().max()
 
 
+def _bwd_against_plain(q, k, v, do, labels):
+    """dq (with the kernel's delta), dk/dv against flash_attention_bwd_plain
+    on the kernel forward's residuals; returns the kernels' (dq, dk, dv)."""
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, labels)
+    kernels.reset_launch_counts()
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, labels, with_delta=True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, out, lse, do, labels)
+    torch.cuda.synchronize()
+    sfx = "" if labels is None else "_labeled"
+    assert kernels.LAUNCHES == {f"flash_attention_bwd_dq{sfx}": 1,
+                                f"flash_attention_bwd_dkv{sfx}": 1}
+    want_delta = fa._delta(out, do)
+    assert (delta - want_delta).abs().max() <= 1e-5 * want_delta.abs().max()
+    got = (dq, dk, dv)
+    for g_, want in zip(got, fa.flash_attention_bwd_plain(q, k, v, out, lse, do, labels)):
+        assert g_.shape == want.shape and torch.isfinite(g_.float()).all()
+        assert (g_.float() - want.float()).abs().max() <= GRAD_REL_TOL * want.float().abs().max()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("labeled", [False, True], ids=["plain", "labeled"])
+@pytest.mark.parametrize("n, m, c", [(1000, 1208, 80), (4096, 4280, 40), (1000, 1208, 40),
+                                     (333, 77, 80)])
+def test_backward_kernels_ragged_head_views_on_card(dev, n, m, c, labeled):
+    """dq and dk/dv on head views of (B,N,8*c) projections (not contiguous
+    copies) with N and kv_len off every tile (4280 = 33*128 + 56, 1208 =
+    9*128 + 56, 77 keys: one ragged tile), unlabeled and under box labels
+    (sample 0 masked, sample 1 open), against the plain version; the
+    kernel's delta against `_delta`."""
+    g = torch.Generator(device=dev).manual_seed(n + m + c)
+    q, do = (_heads(_rnd(g, dev, 2, n, 8 * c), 8) for _ in range(2))
+    k, v = (_heads(_rnd(g, dev, 2, m, 8 * c), 8) for _ in range(2))
+    assert not q.is_contiguous() and q.stride(1) == c
+    labels = None
+    if labeled:
+        bits, open_ = _box_labels(dev, 64 if n >= 4096 else 32)
+        length = max(n, m)
+        labels = (_label_cols(bits, length), _label_cols(open_, length))
+    _bwd_against_plain(q, k, v, do, labels)
+
+
+def _label_cols(t, length):
+    """Label rows cut or padded (closed, no instance) to `length` positions."""
+    t = t[:, :length]
+    return torch.nn.functional.pad(t, (0, length - t.shape[1]))
+
+
+@pytest.mark.cuda
+def test_backward_labeled_row_without_keys_on_card(dev):
+    """q rows 128..255 keep no key (none open, no shared instance bit, their
+    own positions past the keys): lse -inf, and dq 0 and finite there, not
+    NaN; dk/dv finite and equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, do = (_heads(_rnd(g, dev, 2, 256, 80), 2) for _ in range(2))
+    k, v = (_heads(_rnd(g, dev, 2, 128, 80), 2) for _ in range(2))
+    pos = torch.arange(256, device=dev)
+    bits = torch.where(pos < 128, 1, 4).int().expand(2, 256).contiguous()
+    open_ = torch.zeros(2, 256, dtype=torch.int32, device=dev)
+    dq, dk, dv = _bwd_against_plain(q, k, v, do, (bits, open_))
+    assert not dq[:, :, 128:].any() and dq[:, :, :128].abs().amax() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["all_open", "all_closed"])
+def test_backward_all_open_and_all_closed_labels_on_card(dev, rows):
+    """Every position open (the CFG null half: the warpgroups skip the
+    labels, the result equals the unlabeled kernels' bit for bit), or every
+    position closed with bit (position mod 30) (each q row keeps one key in
+    30: the labeled steps on every tile)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, do = (_heads(_rnd(g, dev, 2, 1000, 320), 8) for _ in range(2))
+    k, v = (_heads(_rnd(g, dev, 2, 1208, 320), 8) for _ in range(2))
+    if rows == "all_open":
+        bits = torch.zeros(2, 1208, dtype=torch.int32, device=dev)
+        open_ = torch.ones(2, 1208, dtype=torch.int32, device=dev)
+    else:
+        bits = (1 << (torch.arange(1208, device=dev) % 30)).int().expand(2, 1208).contiguous()
+        open_ = torch.zeros(2, 1208, dtype=torch.int32, device=dev)
+    got = _bwd_against_plain(q, k, v, do, (bits, open_))
+    if rows == "all_open":
+        plain = _bwd_against_plain(q, k, v, do, None)
+        for a, b in zip(got, plain):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_plain_route_cross_attention_scores_on_tensor_cores(dev):
+    """The plain route's ds1 cross-attention (B=16, 8 heads of 40, 77 keys,
+    bf16) as the UNet calls it: no SIMT fp32 GEMM (cuBLAS `sgemm`, MAGMA's
+    `magma_sgemmEx`) among its kernels, and the result of the unpadded fp32
+    product."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from instancediffusion_tpu_torch.ops.attention import sdpa_xla
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    q = _heads(_rnd(g, dev, 16, 4096, 320), 8)
+    k, v = (_heads(_rnd(g, dev, 16, 77, 320), 8) for _ in range(2))
+    sdpa_xla(q, k, v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = sdpa_xla(q, k, v)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    assert names
+    assert not [n for n in names if any(w in n.lower() for w in ("sgemm", "magma", "simt"))]
+    ref = sdpa_fp32(q, k, v)
+    assert (out.float() - ref.float()).abs().max() <= 2 * REL_TOL * ref.float().abs().max()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("labeled", [False, True])
 def test_trainable_attention_autograd_on_card(dev, labeled):

@@ -5,7 +5,9 @@ from the view the wrapper is given; `gn_plan` cuts each sample's rows over
 the GroupNorm kernel's cooperative grid (and a large batch over several
 launches); `ff_fits` / `ff_plan` say which feed-forward shapes the fused
 kernel serves and how it tiles them; `ln_plan` picks the lanes that share a
-LayerNorm row; `takes_kernel` / `flash_route` route a call by dtype. None
+LayerNorm row; `takes_kernel` / `flash_route` route a call by dtype;
+`bwd_plan` tiles the backward flash kernels and `padded_scores` pads the
+key axis of the plain route's fp32 scores. None
 needs a card, so the shapes and views of the main path are checked here:
 strides, boxes and coordinate slots of the maps, and that every row, channel
 and inner chunk is covered exactly once.
@@ -19,7 +21,7 @@ from instancediffusion_tpu_torch.kernels import flash_attention as fa
 from instancediffusion_tpu_torch.kernels import geglu_ff as ff
 from instancediffusion_tpu_torch.kernels import norms
 from instancediffusion_tpu_torch.nn import core as pnn
-from instancediffusion_tpu_torch.ops.attention import flash_route
+from instancediffusion_tpu_torch.ops.attention import flash_route, padded_scores
 
 # GroupNorm shapes (B, rows, C) of the B=16 gate-1 UNet forward and of the
 # VAE decoder at B=8
@@ -383,3 +385,81 @@ def test_norms_route_by_dtype():
 ])
 def test_flash_route(impl, n, m, dtype, c, labels, mask, want):
     assert flash_route(impl, n, m, dtype, c, labels, mask) == want
+
+
+# the training step's attention shapes at B=4, 8 heads: (N, M, c, labeled)
+TRAIN_SHAPES = [(4096, 4096, 40, False), (4096, 4280, 40, False), (1024, 1024, 80, False),
+                (1024, 1208, 80, False), (4096, 4280, 40, True)]
+
+
+def _check_bwd_plan(plan, kind, b, h, n, m, c):
+    own, streamed = (n, m) if kind == "dq" else (m, n)
+    assert plan.kind == kind
+    # every owned row in exactly one block, every streamed row in one tile
+    assert plan.grid[1] == b * h
+    assert plan.grid[0] * plan.block_rows >= own > (plan.grid[0] - 1) * plan.block_rows
+    assert plan.tiles * plan.tile_rows >= streamed > (plan.tiles - 1) * plan.tile_rows
+    # 64 rows per consumer warpgroup, whole wgmma depth steps per streamed tile
+    assert plan.block_rows % 64 == 0 and plan.tile_rows % 16 == 0
+    assert plan.threads == 128 * (plan.block_rows // 64 + 1)
+    # the shared memory: at least two ring stages within the block's 232,448 bytes
+    assert 2 <= plan.stages <= 4 and plan.smem <= fa.BWD_MAX_SMEM
+    atoms = -(-c // 64)
+    res = (3 if kind == "dq" else 2) * atoms * plan.block_rows * 128
+    assert plan.smem >= res + plan.stages * 2 * atoms * plan.tile_rows * 128
+    # registers: a block above 256 threads gets 168 a thread; the
+    # accumulators must leave room for descriptors, addresses and labels
+    assert plan.reg_limit == (168 if plan.threads > 256 else 255)
+    assert plan.acc_regs + 40 <= plan.reg_limit
+
+
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bwd_plan_at_the_training_shapes(kind, shape):
+    """The backward kernels' plans at B=4: the ds1 shapes (c=40) stream
+    64-row tiles, the ds2 ones (c=80) 32 q rows (dk/dv, whose S^T, dP^T, dK
+    and dV would not fit 168 registers at 64) or 64 keys (dq); 128 rows a
+    block."""
+    n, m, c, labeled = shape
+    plan = fa.bwd_plan(kind, 4, 8, n, m, c, labeled)
+    _check_bwd_plan(plan, kind, 4, 8, n, m, c)
+    assert plan.block_rows == 128
+    assert plan.tile_rows == (32 if (kind, c) == ("dkv", 80) else 64)
+
+
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+@pytest.mark.parametrize("c", [16, 40, 64, 80, 128])
+def test_bwd_plan_head_dims(kind, c):
+    """Every head-dim class, on ragged lengths (N = 1000, M = 1208); above
+    c = 96 a dk/dv block is one consumer warpgroup, which ptxas gives 255
+    registers."""
+    for labeled in (False, True):
+        plan = fa.bwd_plan(kind, 2, 8, 1000, 1208, c, labeled)
+        _check_bwd_plan(plan, kind, 2, 8, 1000, 1208, c)
+    assert (plan.block_rows == 64) == (kind == "dkv" and c > 96)
+
+
+@pytest.mark.parametrize("args, match", [
+    ((2, 8, 4096, 4096, 36), "multiple of 8"),
+    ((2, 8, 4096, 4096, 136), "multiple of 8"),
+    ((8192, 9, 64, 64, 40), "grid limit"),
+])
+def test_bwd_plan_refuses_what_the_kernels_do_not_take(args, match):
+    for kind in ("dq", "dkv"):
+        with pytest.raises(ValueError, match=match):
+            fa.bwd_plan(kind, *args)
+
+
+@pytest.mark.parametrize("m", [77, 80, 1])
+def test_padded_scores_equal_the_unpadded_scores(m):
+    """The plain route's fp32 scores through a key axis padded to a
+    multiple of 8 (77 -> 80) and sliced back: exactly the unpadded product.
+    The values are multiples of 1/8 below 4 in bf16, so every sum is exact
+    in fp32 and any summation order gives the same bits."""
+    g = torch.Generator().manual_seed(0)
+    q = (torch.randint(-32, 32, (16, 96, 40), generator=g) / 8).bfloat16()
+    k = (torch.randint(-32, 32, (16, m, 40), generator=g) / 8).bfloat16()
+    out = padded_scores(q, k)
+    ref = torch.einsum("gnc,gmc->gnm", q.float(), k.float())
+    assert out.dtype == torch.float32 and out.shape == (16, 96, m)
+    assert torch.equal(out, ref)

@@ -1,6 +1,6 @@
 """Profile the PyTorch port's full-width training step on one CUDA card.
 
-    python3 tools/torch_train_profile.py [--steps 2] [--masked]
+    python3 tools/torch_train_profile.py [--steps 2] [--masked] [--root DIR]
 
 Builds the training state as chip_smoke.py's train phase does (Config(),
 B=4 at 512 px, the batch bench.py builds from numpy seed 0, densified
@@ -8,9 +8,12 @@ weights, frozen weights bf16, AdamW, remat on), runs two warm-up steps,
 times `--steps` steps on the host clock, then profiles `--steps` more with
 torch.profiler and prints: the host-clock time per step without and with
 the profiler, the device time per step by category and by kernel (top 30),
-and the device's busy share (device time per step over the unprofiled
-step time; one stream, so kernels do not overlap). `--masked` takes the "mask" preset with
-use_masked_att. Needs a CUDA card; imports no JAX.
+the device's busy share (device time per step over the unprofiled step
+time; one stream, so kernels do not overlap) and the peak memory of the
+unprofiled steps (`torch.cuda.max_memory_allocated`). `--masked` takes the
+"mask" preset with use_masked_att. `--root DIR` imports the port and
+`chip_smoke` from another checkout (parent against change in one call).
+Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -22,7 +25,6 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # (category, substrings of the kernel name), first match wins
 CATEGORIES = (
@@ -55,7 +57,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--masked", action="store_true")
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
     from torch.autograd import DeviceType
@@ -97,11 +101,13 @@ def main() -> int:
         step(state, batch, pts.sample_draws(gen, b, latent))
     draws = [pts.sample_draws(gen, b, latent) for _ in range(args.steps)]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for d in draws:
         step(state, batch, d)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for d in draws:
@@ -126,7 +132,8 @@ def main() -> int:
     print(f"train step ({'masked' if args.masked else 'unmasked'}, B={b}, "
           f"{chip_smoke.TRAIN_IMAGE}px, remat): host {plain_wall / n * 1e3:.1f} ms/step "
           f"({wall / n * 1e3:.1f} under the profiler), device {busy / n * 1e3:.1f} ms/step, "
-          f"busy {100 * busy / plain_wall:.1f}% of the unprofiled step")
+          f"busy {100 * busy / plain_wall:.1f}% of the unprofiled step, peak memory "
+          f"{peak / 2**30:.2f} GiB")
     print("device ms per step by category:")
     for cat, us in by_cat.most_common():
         print(f"  {us / n / 1e3:9.2f}  {100 * us / (busy * 1e6):5.1f}%  {cat}")
