@@ -14,11 +14,12 @@ Phases, in order (each prints its lines; any failure exits non-zero):
              (attention and GroupNorm at the UNet's B=16, the training
              forward and the backward kernels dq and dk/dv, plain and
              labeled, at B=4 with SDPA's backward as their library time,
-             GroupNorm at the VAE decoder's B=8), each held
+             GroupNorm at the VAE decoder's B=8, the fused projection
+             kernels K8 / K8' at the served B=16 beside F.linear), each held
              to its plain version and timed by device time (the kernels'
              durations in torch.profiler over 20 back-to-back launches),
-             beside events around those 20 launches, one wrapper-timed call
-             and the library call's device time
+             beside events around those 20 launches, one wrapper-timed call,
+             the library call's device time and the share of the bound
   grounding  UniFusion in fp32 (ConvNeXt's LayerNorms through the kernel) on
              the slice's layout with random phrase embeddings and instance
              masks, seg tokens kept, kernels vs plain_kernels()
@@ -37,7 +38,8 @@ Phases, in order (each prints its lines; any failure exits non-zero):
   fused      the B=16 gate-1 UNet forward (the CFG batch of 8 images) with
              the ds1 attentions on the FUSED_PROJ route (proj_split, flash
              attention, merge_proj) against the unfused route, both on the
-             kernels: error and both times
+             kernels: error, both times on the host clock and both device
+             times (off, on, on, off)
   serve      serve(port=0, DPM-Solver++ 20 steps, batch 8, mis=0) on the
              same weights, FUSED_PROJ on: warm-up, 2 x 8 concurrent POSTs,
              then a burst of 16; every reply a 512x512 PNG; p50 latency,
@@ -716,10 +718,12 @@ def _head_layout_cases(torch, randn, case):
     batch 2 and at the serving batch 16 (CFG over 8 images): q from the
     visual rows of the fuser's [x | objs] (a row slice), k and v over the
     self-attention's 4096 rows and over the fuser's unpadded 4280 (written
-    padded to 4288, tail zeroed); K8' merge_proj on the flash kernel's
-    output layout, with the fp32 bias. Library: F.linear of the same
-    product without the relayout (one call over the concatenated k and v
-    weights)."""
+    padded to 4288, tail zeroed), and a ragged 333 rows (padded to 384, not
+    a multiple of the kernel's 64-row tile); K8' merge_proj on
+    the flash kernel's output layout and on a contiguous (B, H, N, c)
+    tensor, with the fp32 bias. Library: F.linear of the same product
+    without the relayout (one call over the concatenated k and v weights).
+    The B=16 cases are main-path cases (device time)."""
     import torch.nn.functional as F
 
     from instancediffusion_tpu_torch.kernels import head_layout as hl
@@ -727,11 +731,13 @@ def _head_layout_cases(torch, randn, case):
     cases = []
     w = lambda: randn(320, 320, std=320 ** -0.5)
     for b in (2, 16):
+        first = len(cases)
         cat = randn(b, 4280, 320)
         for label, x, n_w in ((f"q ({b},4096,320) of a ({b},4280,320) row slice",
                                cat[:, :4096], 1),
                               (f"k,v ds1 self ({b},4096,320)", randn(b, 4096, 320), 2),
-                              (f"k,v ds1 fuser ({b},4280,320) -> 4288", cat, 2)):
+                              (f"k,v ds1 fuser ({b},4280,320) -> 4288", cat, 2),
+                              (f"k,v ragged ({b},333,320) -> 384", randn(b, 333, 320), 2)):
             ws = [w() for _ in range(n_w)]
             wcat = torch.cat(ws)
             m = x.shape[1]
@@ -746,14 +752,20 @@ def _head_layout_cases(torch, randn, case):
                 lambda x=x, wcat=wcat: F.linear(x, wcat)))
         o = randn(b, 4096, 8, 40).permute(0, 2, 1, 3)  # the flash kernel's output view
         wo, bo = w(), randn(320, std=0.1, dtype=torch.float32)
-        cases.append(case(
-            "merge_proj", f"({b},8,4096,40) flash output view -> ({b},4096,320) + bias",
-            lambda o=o, wo=wo, bo=bo: hl.merge_proj(o, wo, bo),
-            lambda o=o, wo=wo, bo=bo: hl.merge_proj_plain(o, wo, bo),
-            BF16_REL_TOL,
-            (2 * b * 4096 * 320 * 320, 2 * (2 * b * 4096 * 320 + 320 * 320) + 4 * 320),
-            lambda o=o, wo=wo, bo=bo, b=b: F.linear(o.transpose(1, 2).reshape(b, 4096, 320),
-                                                    wo, bo.to(wo.dtype))))
+        for label, ov in ((f"({b},8,4096,40) flash output view -> ({b},4096,320) + bias", o),
+                          (f"({b},8,4096,40) contiguous -> ({b},4096,320) + bias",
+                           o.contiguous())):
+            cases.append(case(
+                "merge_proj", label,
+                lambda o=ov, wo=wo, bo=bo: hl.merge_proj(o, wo, bo),
+                lambda o=ov, wo=wo, bo=bo: hl.merge_proj_plain(o, wo, bo),
+                BF16_REL_TOL,
+                (2 * b * 4096 * 320 * 320, 2 * (2 * b * 4096 * 320 + 320 * 320) + 4 * 320),
+                lambda o=ov, wo=wo, bo=bo, b=b: F.linear(
+                    o.transpose(1, 2).reshape(b, 4096, 320), wo, bo.to(wo.dtype))))
+        if b == FUSED_UNET_B:  # q, k/v self, k/v fuser, the flash output view
+            for cs in cases[first:first + 3] + cases[first + 4:first + 5]:
+                cs["main"] = True
     return cases
 
 
@@ -869,7 +881,8 @@ def phase_kernels(torch, dev) -> dict:
                 extra += f" (library = {cs['library_name']})"
             log(f"kernels (main path): {name} {label}: {verdict} device_ms={dev_ms:.4f} "
                 f"events_ms={ev_ms:.4f} wrapper_ms={wrap_ms:.4f} library_device_ms={lib}"
-                f"{ratio} bound_ms={bound_ms:.4f} ({bound_by}){exp_txt}{extra}")
+                f"{ratio} bound_ms={bound_ms:.4f} ({bound_by}) "
+                f"bound_share={bound_ms / dev_ms:.3f}{exp_txt}{extra}")
         else:
             ms, plain_ms = median_ms(kern), median_ms(plain)
             lib_ms = None if cs["library"] is None else median_ms(cs["library"])
@@ -1168,8 +1181,9 @@ def phase_request(torch, pipe, card: str, name: str, meta: dict, mis: float,
 
 def phase_fused_unet(torch, dev, cfg, unet_mod, objs1) -> str:
     """The B=16 gate-1 forward with FUSED_PROJ on against off, both on the
-    kernels (error relative to max |eps|, both times, the fused run's
-    head-layout launches)."""
+    kernels (error relative to max |eps|, both times on the host clock and
+    by device time, off, on, on, off; the fused run's head-layout
+    launches)."""
     from instancediffusion_tpu_torch import kernels
     from instancediffusion_tpu_torch.models import unet as unet_lib
 
@@ -1194,6 +1208,10 @@ def phase_fused_unet(torch, dev, cfg, unet_mod, objs1) -> str:
             launches = {k: kernels.LAUNCHES.get(k, 0) for k in
                         ("proj_split", "merge_proj", "flash_attention")}
             ms_f = median_ms(run, reps=5)
+            dev_ms = {}
+            for fused in (False, True, True, False):
+                unet_lib.FUSED_PROJ = fused
+                dev_ms.setdefault(fused, []).append(device_ms(torch, run, reps=3))
         finally:
             unet_lib.FUSED_PROJ = False
     if launches != {"proj_split": 2 * DS1_ATTENTIONS, "merge_proj": DS1_ATTENTIONS,
@@ -1208,7 +1226,10 @@ def phase_fused_unet(torch, dev, cfg, unet_mod, objs1) -> str:
         raise RuntimeError(f"fused: FUSED_PROJ on vs off rel err {rel:.3g} > {UNET_REL_TOL}")
     return (f"fused: B={b} gate=1.0 FUSED_PROJ on vs off (both kernels): max_abs_err={err:.4g} "
             f"max|eps|={scale:.4g} rel={rel:.3g} tol={UNET_REL_TOL}; fused_fwd_ms={ms_f:.2f} "
-            f"unfused_fwd_ms={ms_u:.2f}; launches per fused forward {launches}")
+            f"unfused_fwd_ms={ms_u:.2f}; device_ms fused "
+            f"{' / '.join(f'{v:.3f}' for v in dev_ms[True])} unfused "
+            f"{' / '.join(f'{v:.3f}' for v in dev_ms[False])}; "
+            f"launches per fused forward {launches}")
 
 
 def _png_size(data: bytes) -> tuple[int, int]:

@@ -88,6 +88,37 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
+// the same box written into shared memory at `dst` of every block of the
+// cluster in `mask`, completing on the barrier at `bar`'s offset in each
+__device__ __forceinline__ void tma_load_3d_mc(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                               uint16_t mask, int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1),
+        "r"(c2)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d_mc(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                               uint16_t mask, int c0, int c1, int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1),
+        "r"(c2), "r"(c3)
+        : "memory");
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1) {
     asm volatile(
@@ -179,6 +210,14 @@ __device__ __forceinline__ void st_cluster_u32(uint32_t mapped, uint32_t v) {
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t mapped) {
     asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(mapped)
                  : "memory");
+}
+
+// arrive on an mbarrier of any block of the cluster with the default
+// (CTA-scope) release: a signal that this thread is done reading shared
+// memory another block's TMA will overwrite. Cluster-scope release makes
+// ptxas wait for every earlier global store of the thread (MEMBAR.GPU).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t mapped) {
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(mapped) : "memory");
 }
 
 // `mbar_wait_at` that also acquires what the other blocks of the cluster

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "idt_geglu_ff": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "idt_proj_split": [_P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "idt_merge_proj": [_P, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "idt_head_plan": [_I, _P, _P, _I, _P],
+    "idt_head_max_clusters": [_I, _I, _I],
 }
 
 

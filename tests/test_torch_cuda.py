@@ -191,6 +191,75 @@ def test_merge_proj_matches_plain_on_card(dev, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["kv_row_slice", "ragged_tile", "seq_pad", "batch16_q"])
+def test_proj_split_edges_on_card(dev, case):
+    """K8 beyond the path's shapes: two weights on a row slice (batch
+    stride 4280*320); M = 333, not a multiple of the 128-row tile (padded
+    to 384); an explicit seq_pad of 640 above the rounded 320 (whole row
+    tiles past the activations, all zero); and the serving batch 16 on q's
+    row slice, whose 512 row tiles outnumber the persistent grid."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, rows, n_w, seq_pad = {"kv_row_slice": (2, 4096, 2, None), "ragged_tile": (2, 333, 2, None),
+                             "seq_pad": (2, 300, 2, 640), "batch16_q": (16, 4096, 1, None)}[case]
+    x = _rnd(g, dev, b, 4280, 320)[:, :rows] if rows == 4096 else _rnd(g, dev, b, rows, 320)
+    ws = [_rnd(g, dev, 320, 320, std=320 ** -0.5) for _ in range(n_w)]
+    kernels.reset_launch_counts()
+    outs = hl.proj_split(x, ws, 8, seq_pad=seq_pad)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"proj_split": 1}
+    refs = hl.proj_split_plain(x, ws, 8, seq_pad=seq_pad)
+    mpad = seq_pad or -(-rows // 64) * 64
+    for out, ref in zip(outs, refs):
+        assert out.shape == ref.shape == (b, 8, mpad, 40)
+        assert (out.float() - ref.float()).abs().max() <= REL_TOL * ref.float().abs().max()
+        assert not out[:, :, rows:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["flash_out", "contiguous"])
+def test_merge_proj_without_bias_on_card(dev, layout):
+    """K8' with no bias, on both layouts, at a sequence (333) that is not a
+    multiple of the 128-row tile."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    o = _rnd(g, dev, 2, 333, 8, 40).permute(0, 2, 1, 3)
+    if layout == "contiguous":
+        o = o.contiguous()
+    w = _rnd(g, dev, 320, 320, std=320 ** -0.5)
+    kernels.reset_launch_counts()
+    out = hl.merge_proj(o, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"merge_proj": 1}
+    ref = hl.merge_proj_plain(o, w)
+    assert out.shape == ref.shape == (2, 333, 320)
+    assert (out.float() - ref.float()).abs().max() <= REL_TOL * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_head_layout_plans_agree_with_the_kernel(dev):
+    """The launcher's own plan (idt_head_plan) equals the wrapper's at the
+    four B=16 cases, at batch 2 and for the per-head merge, at the card's
+    count of co-resident clusters; a call the kernel does not take raises
+    before any launch."""
+    for b in (2, 16):
+        for m, mpad, n_w, sb in ((4096, 4096, 1, 4280 * 320), (4096, 4096, 2, 4096 * 320),
+                                 (4280, 4288, 2, 4280 * 320)):
+            sizes = (b, m, mpad, 320, 8, 40, n_w)
+            plan = hl._card_plan(hl.split_plan, 0, *sizes, (sb, 320))
+            assert plan.max_clusters * plan.cluster <= torch.cuda.get_device_properties(
+                0).multi_processor_count
+            hl._confirm(0, sizes, (sb, 320), plan)
+        for strides in ((4096 * 320, 40, 320), (8 * 4096 * 40, 4096 * 40, 40)):
+            sizes = (b, 4096, 8, 40, 320)
+            hl._confirm(1, sizes, strides, hl._card_plan(hl.merge_plan, 0, *sizes, strides))
+    g = torch.Generator(device=dev).manual_seed(8)
+    x, w = _rnd(g, dev, 2, 64, 320), _rnd(g, dev, 96, 320)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiples of 64"):
+        hl.proj_split(x, [w], 2)  # 96 output columns: no column tile
+    assert kernels.LAUNCHES == {}
+
+
+@pytest.mark.cuda
 def test_fused_route_launches_head_layout_kernels(dev, monkeypatch):
     """FUSED_PROJ on: a ds1-shaped attention goes through proj_split (q, then
     k/v), the flash kernel and merge_proj, and agrees with the unfused

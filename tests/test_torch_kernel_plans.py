@@ -7,18 +7,21 @@ launches); `ff_fits` / `ff_plan` say which feed-forward shapes the fused
 kernel serves and how it tiles them; `ln_plan` picks the lanes that share a
 LayerNorm row; `takes_kernel` / `flash_route` route a call by dtype;
 `bwd_plan` tiles the backward flash kernels and `padded_scores` pads the
-key axis of the plain route's fp32 scores. None
+key axis of the plain route's fp32 scores; `split_plan` / `merge_plan` tile
+the fused projection kernels and give their TMA maps. None
 needs a card, so the shapes and views of the main path are checked here:
 strides, boxes and coordinate slots of the maps, and that every row, channel
 and inner chunk is covered exactly once.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from instancediffusion_tpu_torch import kernels
 from instancediffusion_tpu_torch.kernels import flash_attention as fa
 from instancediffusion_tpu_torch.kernels import geglu_ff as ff
+from instancediffusion_tpu_torch.kernels import head_layout as hl
 from instancediffusion_tpu_torch.kernels import norms
 from instancediffusion_tpu_torch.nn import core as pnn
 from instancediffusion_tpu_torch.ops.attention import flash_route, padded_scores
@@ -463,3 +466,135 @@ def test_padded_scores_equal_the_unpadded_scores(m):
     ref = torch.einsum("gnc,gmc->gnm", q.float(), k.float())
     assert out.dtype == torch.float32 and out.shape == (16, 96, m)
     assert torch.equal(out, ref)
+
+
+# the fused projection kernels (K8 proj_split, K8' merge_proj) at the serving
+# batch and at batch 2: (b, m, mpad, weights, x batch stride) of the ds1
+# attentions' q (a row slice of the fuser's [x | objs]), k/v over the
+# self-attention's rows and over the fuser's 4280 (padded to 4288)
+HEAD_SPLIT_CASES = [(b, m, mpad, n_w, sb) for b in (2, 16) for m, mpad, n_w, sb in (
+    (4096, 4096, 1, 4280 * 320), (4096, 4096, 2, 4096 * 320), (4280, 4288, 2, 4280 * 320))]
+
+
+def _check_head_plan(plan, b, out_rows, n_cols, n_out):
+    # a cluster's blocks hold the weights' column slices; rows in 64-row tiles
+    assert plan.cluster == n_out * n_cols // plan.col_tile <= hl.MAX_CLUSTER
+    assert plan.tiles == b * -(-out_rows // plan.rows) and plan.rows == 64
+    assert plan.grid == min(plan.tiles, plan.max_clusters) * plan.cluster <= hl.SMS
+    # the weight slice, the activation slots and the barriers in 232,448 bytes
+    assert 2 <= plan.slots <= hl.MAX_SLOTS and plan.smem <= hl.SMEM_CAP
+    assert plan.smem >= plan.chunks * (plan.col_tile + plan.slots * 64) * 128
+    # registers: 384 threads get 168 a thread, of which the fp32 accumulator
+    # takes col_tile / 2
+    assert plan.threads == 384 and plan.reg_limit == 168
+    assert plan.acc_regs == plan.col_tile // 2 and plan.acc_regs + 40 <= plan.reg_limit
+
+
+@pytest.mark.parametrize("case", HEAD_SPLIT_CASES, ids=lambda c: "b{}_m{}_w{}".format(*c[:2], c[3]))
+def test_split_plan_at_the_serving_shapes(case):
+    """proj_split: 160-column slices (2 blocks a cluster for q, 4 for k and
+    v), three 40 KB activation slots beside the 100 KB slice, the
+    activations read in place as a (C_in, M, B) map (the q row slice with
+    batch stride 4280 * 320), the weight as (C_in, H*c)."""
+    b, m, mpad, n_w, sb = case
+    plan = hl.split_plan(b, m, mpad, 320, 8, 40, n_w, (sb, 320))
+    _check_head_plan(plan, b, mpad, 320, n_w)
+    assert (plan.col_tile, plan.chunks, plan.slots, plan.per_head) == (160, 5, 3, False)
+    assert plan.cluster == 2 * n_w and plan.max_clusters == hl.SMS // plan.cluster
+    assert plan.a == hl.HeadMap((320, m, b), (640, 2 * sb), (64, 64, 1))
+    assert plan.w == hl.HeadMap((320, 320), (640,), (64, 160))
+
+
+@pytest.mark.parametrize("m, seq_pad, tiles", [(4280, None, 67), (100, None, 2), (100, 512, 8)])
+def test_split_plan_ragged_rows(m, seq_pad, tiles):
+    """Rows past M: the map ends at row M (TMA reads zeros past it) while the
+    tiles cover Mpad (4280 -> 4288, 100 -> 128, or an explicit seq_pad of
+    512, whose last tiles lie wholly past the activations)."""
+    mpad = hl._seq_pad(m, seq_pad)
+    plan = hl.split_plan(2, m, mpad, 320, 8, 40, 2, (m * 320, 320))
+    _check_head_plan(plan, 2, mpad, 320, 2)
+    assert plan.a.dims == (320, m, 2) and plan.tiles == 2 * tiles
+
+
+@pytest.mark.parametrize("b", [2, 16])
+@pytest.mark.parametrize("layout", ["flash_out", "contiguous"])
+def test_merge_plan_layouts(b, layout):
+    """merge_proj on the flash kernel's output (heads side by side: the
+    (B, N, H*c) matrix, 160-column slices) and on a contiguous (B, H, N, c)
+    tensor (per head: 8 chunks of one head each, boxes zero-filled from 40 to
+    64 columns, 64-column slices so two slots fit)."""
+    o = torch.empty(b, 4096, 8, 40).permute(0, 2, 1, 3)
+    if layout == "contiguous":
+        o = o.contiguous()
+    strides = tuple(o.stride()[:3])
+    plan = hl.merge_plan(b, 4096, 8, 40, 320, strides)
+    _check_head_plan(plan, b, 4096, 320, 1)
+    if layout == "flash_out":
+        assert (plan.col_tile, plan.chunks, plan.slots, plan.per_head) == (160, 5, 3, False)
+        assert plan.a == hl.HeadMap((320, 4096, b), (640, 4096 * 640), (64, 64, 1))
+        assert plan.w == hl.HeadMap((320, 320), (640,), (64, 160))
+    else:
+        assert (plan.col_tile, plan.chunks, plan.slots, plan.per_head) == (64, 8, 2, True)
+        assert plan.a == hl.HeadMap((40, 4096, 8, b), (80, 4096 * 80, 8 * 4096 * 80),
+                                    (64, 64, 1, 1))
+        assert plan.w == hl.HeadMap((40, 8, 320), (80, 640), (64, 1, 64))
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda: hl.split_plan(2, 64, 64, 320, 6, 12, 1, (64 * 320, 320)), "multiples of 8"),
+    (lambda: hl.split_plan(2, 64, 64, 576, 8, 40, 1, (64 * 576, 576)), "at most 8"),
+    (lambda: hl.split_plan(2, 64, 64, 320, 2, 48, 1, (64 * 320, 320)), "multiples of 64"),
+    (lambda: hl.split_plan(2, 64, 32, 320, 8, 40, 1, (64 * 320, 320)), "below the sequence"),
+    (lambda: hl.split_plan(2, 64, 64, 320, 8, 40, 1, (64 * 324, 324)), "multiples of 8"),
+    (lambda: hl.split_plan(2, 64, 64, 320, 8, 160, 2, (64 * 320, 320)), "slices"),
+    (lambda: hl.merge_plan(2, 64, 4, 80, 320, (4 * 64 * 80, 64 * 80, 80)), "not side by side"),
+    (lambda: hl.merge_plan(2, 64, 8, 36, 320, (8 * 64 * 40, 40, 320)), "multiple of 8"),
+])
+def test_head_plans_refuse_what_the_kernel_does_not_take(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def _head_store_offsets(plan, n_cols, n_out, out_rows, view):
+    """Every (weight, element offset) the kernel stores, as csrc/head_layout.cu
+    walks them: clusters over row tiles, block r of a cluster on column
+    slice r, warp w and lane (g, t) of a warpgroup on rows 16 w + g (+ 8) and
+    on the 8-column blocks 4 q + t of the slice."""
+    sb, sh, sr, hc = view
+    col_tiles = n_cols // plan.col_tile
+    n_clusters = plan.grid // plan.cluster
+    row_tiles = -(-out_rows // plan.rows)
+    rows = (16 * np.arange(4)[:, None, None] + np.arange(8)[None, :, None]
+            + 8 * np.arange(2)[None, None, :]).ravel()
+    blocks = (4 * np.arange(plan.col_tile // 32)[:, None] + np.arange(4)[None, :]).ravel()
+    cols = (8 * blocks[:, None] + np.arange(8)[None, :]).ravel()
+    seen = []
+    for cid in range(n_clusters):
+        for tile in range(cid, plan.tiles, n_clusters):
+            b, r0 = tile // row_tiles, (tile % row_tiles) * plan.rows
+            for rank in range(plan.cluster):
+                wj, n0 = rank // col_tiles, (rank % col_tiles) * plan.col_tile
+                r = r0 + rows[rows + r0 < out_rows]
+                c = n0 + cols
+                off = b * sb + (c // hc)[None, :] * sh + r[:, None] * sr + (c % hc)[None, :]
+                seen.append(off.ravel() + wj * (1 << 40))
+    return np.concatenate(seen)
+
+
+@pytest.mark.parametrize("b, m, mpad, n_w", [(2, 100, 128, 2), (3, 4280, 4288, 1),
+                                             (2, 300, 640, 2)])
+def test_split_plan_stores_every_output_once(b, m, mpad, n_w):
+    """The kernel's walk writes every element of each (B, H, Mpad, c) output
+    exactly once, on a grid of fewer clusters than tiles."""
+    plan = hl.split_plan(b, m, mpad, 320, 8, 40, n_w, (m * 320, 320), max_clusters=3)
+    got = np.sort(_head_store_offsets(plan, 320, n_w, mpad,
+                                      (8 * mpad * 40, mpad * 40, 40, 40)))
+    size = b * 8 * mpad * 40
+    want = np.sort(np.concatenate([np.arange(size) + j * (1 << 40) for j in range(n_w)]))
+    assert np.array_equal(got, want)
+
+
+def test_merge_plan_stores_every_output_once():
+    plan = hl.merge_plan(2, 333, 8, 40, 320, (8 * 333 * 40, 333 * 40, 40), max_clusters=4)
+    got = np.sort(_head_store_offsets(plan, 320, 1, 333, (333 * 320, 0, 320, 320)))
+    assert np.array_equal(got, np.arange(2 * 333 * 320))
