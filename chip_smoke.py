@@ -48,6 +48,20 @@ Phases, in order (each prints its lines; any failure exits non-zero):
   ddim       generate with DDIM (20 steps, B=8), then img2img of one of its
              images (strength 0.5 of 50 PLMS steps, B=8): two requests each,
              s/image and launches
+  cli        the demo CLI from checkpoint files: the smoke's bf16 weights
+             written as a flat SD-form checkpoint (`reference_state_dict`,
+             the stock first conv in pretrained/) and a kohya LoRA on the ds1
+             attentions, then `inference.main` in-process on
+             demos/demo_fox_meadow.json --use_masks (8 images, 50 steps, mask
+             preset, mis 0.36), without and with --lora: loaded weights
+             bit-equal to the in-memory ones, PNGs within one uint8 level of
+             generate on the in-memory weights, the merged weight exact at
+             one module, K1-K5 launched; file size, write and load seconds
+  resume     training save and resume at full width (Config(), B=4): one
+             step, save_train_ckpt into an auto-resume folder, a fresh state
+             restored from it, one more step on both with the same draws:
+             equal losses, parameters, EMA, optimizer steps and learning
+             rate, frozen weights bf16; file size, save and restore seconds
   train      the training step at full width (Config(), B=4 at 512 px, 30
              objects, the batch bench.py builds from numpy seed 0, densified
              weights, frozen weights bf16, remat on): (a) one step's loss
@@ -1028,6 +1042,121 @@ def densify_(module, seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# checkpoint files from the port's modules
+# ---------------------------------------------------------------------------
+
+
+class _KeyProbe(dict):
+    """A state dict that holds every key: reading key k returns a
+    (1, 1, 1, 1) array holding k's position in `read`, so the tree a
+    converter builds from it says which reference key each leaf came from
+    (transposes and copies keep the value)."""
+
+    def __init__(self):
+        super().__init__()
+        self.read: list[str] = []
+
+    def __contains__(self, key) -> bool:
+        return True
+
+    def __getitem__(self, key):
+        import numpy as np
+
+        self.read.append(key)
+        return np.full((1, 1, 1, 1), len(self.read) - 1, np.float64)
+
+
+def _reference_names(module, convert) -> dict:
+    """{port parameter name: reference key} of a module, read off the tree
+    `convert(probe)` builds: a parameter's tree path is its name with the
+    leaf renamed as `io/jax_params` maps it (Linear / Conv2d weight -> w,
+    bias -> b; Norm weight -> scale). The UNet's stock first conv is not
+    part of the reference form (pretrained/SD_v1_5_input_conv_weight_bias.pth
+    holds it) and is left out."""
+    from instancediffusion_tpu_torch.nn.core import Conv2d, Linear, Norm
+
+    probe = _KeyProbe()
+    tree = convert(probe)
+    names = {}
+    for name, _ in module.named_parameters():
+        if name.startswith("first_conv_sd."):
+            continue
+        head, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(head) if head else module
+        if isinstance(owner, (Linear, Conv2d)) and leaf in ("weight", "bias"):
+            leaf = "w" if leaf == "weight" else "b"
+        elif isinstance(owner, Norm) and leaf == "weight":
+            leaf = "scale"
+        node = tree
+        for part in (head.split(".") if head else []) + [leaf]:
+            node = node[int(part)] if isinstance(node, list) else node[part]
+        names[name] = probe.read[int(node.reshape(-1)[0])]
+    if len(set(names.values())) != len(names):
+        raise RuntimeError("two parameters map to one reference key")
+    return names
+
+
+def reference_state_dict(unet=None, vae=None, clip=None) -> dict:
+    """The port's modules as a flat SD-form checkpoint (reference key ->
+    CPU tensor in the module's dtype), the inverse of the converters in
+    `io/torch_convert`: UNet under model.diffusion_model., the VAE (which
+    needs its encoder) under first_stage_model., CLIP under
+    cond_stage_model.transformer.text_model., without the UNet's stock
+    first conv. Reference layouts equal the port's (Linear (out, in), conv
+    OIHW), so every tensor is copied as it is."""
+    from instancediffusion_tpu_torch.io import torch_convert as tc
+
+    parts = (
+        (unet, "model.diffusion_model.", lambda m: lambda sd: tc.convert_unet(sd, m.cfg)),
+        (vae, "first_stage_model.", lambda m: lambda sd: tc.convert_vae(sd, m.cfg)),
+        (clip, "cond_stage_model.", lambda m: lambda sd: tc.convert_clip_text(sd, m.cfg)),
+    )
+    out = {}
+    for module, prefix, converter in parts:
+        if module is None:
+            continue
+        params = dict(module.named_parameters())
+        for name, key in _reference_names(module, converter(module)).items():
+            out[prefix + key] = params[name].detach().to("cpu", copy=True)
+    return out
+
+
+# the LoRA the cli phase merges: kohya names of the ds1 spatial
+# transformers (diffusers down_blocks.0 attentions 0-1, up_blocks.3
+# attentions 0-2), attn1 / attn2 to_q and to_out.0, and one proj_out
+LORA_RANK = 4
+LORA_WIDTH = 320  # the ds1 transformers' width at Config()
+LORA_ALPHA = 4.0
+LORA_SCALE = 0.8
+LORA_DS1 = ("down_blocks_0_attentions_0", "down_blocks_0_attentions_1",
+            "up_blocks_3_attentions_0", "up_blocks_3_attentions_1", "up_blocks_3_attentions_2")
+LORA_PROJ_OUT = "up_blocks_3_attentions_2"
+# checked module: down_blocks_0_attentions_0 attn1 to_q = input_blocks[1]
+LORA_CHECK = ("down_blocks_0_attentions_0_transformer_blocks_0_attn1_to_q",
+              "input_blocks.1.1.blocks.0.attn1.to_q.weight")
+
+
+def lora_state_dict(torch) -> dict:
+    """A kohya-format LoRA (fp32 CPU tensors) on the ds1 attentions' to_q /
+    to_out.0 (attn1 and attn2) and one proj_out, rank LORA_RANK, from a
+    seeded generator; `up` scaled so the merge moves the images."""
+    g = torch.Generator().manual_seed(5)
+    width = LORA_WIDTH
+    mods = [f"{blk}_transformer_blocks_0_{a}_{t}" for blk in LORA_DS1
+            for a in ("attn1", "attn2") for t in ("to_q", "to_out_0")]
+    sd = {}
+    for mod in mods + [f"{LORA_PROJ_OUT}_proj_out"]:
+        down = torch.randn(LORA_RANK, width, generator=g) / math.sqrt(width)
+        up = torch.randn(width, LORA_RANK, generator=g) * 0.5
+        if mod.endswith("proj_out"):
+            down, up = down[..., None, None], up[..., None, None]
+        sd[f"lora_unet_{mod}.lora_down.weight"] = down
+        sd[f"lora_unet_{mod}.lora_up.weight"] = up
+        sd[f"lora_unet_{mod}.alpha"] = torch.tensor(LORA_ALPHA)
+    return sd
+
+
+# ---------------------------------------------------------------------------
 # UNet forward: kernels vs plain
 # ---------------------------------------------------------------------------
 
@@ -1373,6 +1502,271 @@ def phase_ddim_img2img(torch, pipe, card: str) -> tuple[str, dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# checkpoint files: the demo CLI, training resume
+# ---------------------------------------------------------------------------
+
+
+class _CaptureLoads:
+    """Within the block, the pipelines InstanceDiffusionPipeline.
+    from_checkpoint builds are also appended to `pipes`."""
+
+    def __init__(self, cls):
+        self.cls, self.pipes = cls, []
+
+    def __enter__(self):
+        self.orig = self.cls.__dict__["from_checkpoint"]
+        load = self.orig.__func__
+
+        def wrapped(klass, *args, **kwargs):
+            self.pipes.append(load(klass, *args, **kwargs))
+            return self.pipes[-1]
+
+        self.cls.from_checkpoint = classmethod(wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.from_checkpoint = self.orig
+
+
+def _lora_expected(torch, w, lora: dict) -> "torch.Tensor":
+    """W + LORA_SCALE * (alpha / rank) * up @ down at the checked module, in
+    float32 (numpy's product, as `io/lora` takes it), rounded to W's dtype."""
+    import numpy as np
+
+    mod = LORA_CHECK[0]
+    down = lora[f"lora_unet_{mod}.lora_down.weight"].numpy()
+    up = lora[f"lora_unet_{mod}.lora_up.weight"].numpy()
+    delta = (down.T @ up.T) * np.float32(LORA_ALPHA / LORA_RANK) * np.float32(LORA_SCALE)
+    d = torch.from_numpy(np.ascontiguousarray(delta.T)).to(w.device)
+    return (w.float() + d).to(w.dtype)
+
+
+def phase_cli(torch, pipe, card: str) -> tuple[str, dict]:
+    """The demo CLI at full width from checkpoint files: the smoke's bf16
+    weights written as a flat SD-form checkpoint (with the stock first conv
+    in pretrained/) and a kohya LoRA, then `inference.main` in-process on
+    demo_fox_meadow.json --use_masks, 8 images, 50 steps, the default mask
+    preset and mis 0.36, without and with --lora. Checks that the loaded
+    weights equal the in-memory ones bit for bit, that the PNGs are written
+    and lie within one uint8 level of `generate` on the in-memory weights
+    (same meta and seed), that the merged weight is W + scale * up @ down at
+    the checked module and the LoRA images differ, and that K1-K5 launched
+    in the plain run. Returns the line and the plain run's launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from instancediffusion_tpu_torch import inference, kernels
+    from instancediffusion_tpu_torch.config import Config, apply_test_preset
+    from instancediffusion_tpu_torch.io.checkpoint import FIRST_CONV_FILE
+    from instancediffusion_tpu_torch.io.png import read_png
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
+
+    demo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demos",
+                        "demo_fox_meadow.json")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    cwd = os.getcwd()
+    try:
+        t0 = time.perf_counter()
+        ckpt = os.path.join(tmp, "instancediffusion_smoke.pth")
+        torch.save(reference_state_dict(pipe.unet, pipe.vae, pipe.clip), ckpt)
+        os.makedirs(os.path.join(tmp, "pretrained"))
+        conv = pipe.unet.first_conv_sd
+        torch.save({"weight": conv.weight.detach().cpu(), "bias": conv.bias.detach().cpu()},
+                   os.path.join(tmp, FIRST_CONV_FILE))
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(ckpt)
+        lora = lora_state_dict(torch)
+        lora_path = os.path.join(tmp, "lora_ds1.pt")
+        torch.save(lora, lora_path)
+        dtype = str(pipe.dtype).replace("torch.", "")
+        log(f"cli: wrote the flat SD-form checkpoint ({size / 1e9:.3f} GB, {dtype}, "
+            f"{write_s:.2f}s) and a kohya LoRA ({len(lora)} tensors) under {tmp}")
+
+        os.chdir(tmp)  # from_checkpoint finds pretrained/ under the working directory
+        args = ["--input_json", demo, "--use_masks", "--ckpt", ckpt, "--num_images",
+                str(N_IMAGES), "--steps", str(STEPS), "--output", os.path.join(tmp, "out")]
+        runs = {}
+        for name, extra in (("plain", []), ("lora", ["--lora", lora_path, "--lora_scale",
+                                                     str(LORA_SCALE)])):
+            with _CaptureLoads(InstanceDiffusionPipeline) as cap:
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                paths = inference.main(args + extra)
+                secs = time.perf_counter() - t0
+                launches = dict(kernels.LAUNCHES)
+            if len(cap.pipes) != 1:
+                raise RuntimeError(f"cli {name}: {len(cap.pipes)} checkpoint loads")
+            imgs = np.stack([read_png(open(p, "rb").read()) for p in paths])
+            boxes = os.path.join(os.path.dirname(paths[0]),
+                                 os.path.basename(paths[0]).replace(".png", "_boxes.png"))
+            if read_png(open(boxes, "rb").read()).shape != (512, 512, 3):
+                raise RuntimeError(f"cli {name}: no 512x512 boxes image at {boxes}")
+            runs[name] = (cap.pipes[0], secs, launches, imgs)
+        os.chdir(cwd)
+
+        # the loaded weights against the in-memory ones, bit for bit
+        loaded = runs["plain"][0]
+        diff = []
+        for part in ("unet", "vae", "clip"):
+            mine = dict(getattr(pipe, part).named_parameters())
+            for n, p in getattr(loaded, part).named_parameters():
+                if p.dtype != mine[n].dtype or not torch.equal(p, mine[n]):
+                    diff.append(f"{part}.{n}")
+        if diff:
+            raise RuntimeError(f"cli: loaded weights differ from the in-memory ones: {diff[:5]}")
+        w_mem = pipe.unet.get_parameter(LORA_CHECK[1])
+        w_lora = runs["lora"][0].unet.get_parameter(LORA_CHECK[1])
+        want = _lora_expected(torch, w_mem, lora)
+        if not torch.equal(w_lora, want) or torch.equal(w_lora, w_mem):
+            raise RuntimeError(f"cli: LoRA-merged {LORA_CHECK[1]} is not W + scale * up @ down "
+                               f"(max diff {(w_lora.float() - want.float()).abs().max().item()})")
+
+        # generate on the in-memory weights with the CLI's meta, seed and defaults
+        cfg = apply_test_preset(Config(), "mask")
+        mem = InstanceDiffusionPipeline(cfg, pipe.unet, pipe.vae, pipe.clip, pipe.tokenizer)
+        meta = inference.parse_demo_json(demo, use_masks=True, rng=np.random.default_rng(0))
+        meta["alpha_type"] = [0.75, 0.0, 0.25]
+        t0 = time.perf_counter()
+        ref = mem.generate(meta, num_images=N_IMAGES, steps=STEPS, guidance_scale=7.5,
+                           alpha=0.75, mis=0.36, seed=0, sampler="plms")
+        gen_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    plain, with_lora = runs["plain"][3], runs["lora"][3]
+    size_px = pipe.image_size
+    if plain.shape != (N_IMAGES, size_px, size_px, 3) or int(plain.max()) == int(plain.min()):
+        raise RuntimeError(f"cli: images {plain.shape}")
+    err = int(np.abs(plain.astype(int) - ref.astype(int)).max())
+    lora_moved = float(np.abs(with_lora.astype(int) - plain.astype(int)).mean())
+    if err > 1 or not lora_moved > 0:
+        raise RuntimeError(f"cli: images vs in-memory generate max |diff| {err} (tol 1); "
+                           f"LoRA images mean |diff| {lora_moved}")
+    launches = runs["plain"][2]
+    missing = [k for k in PLAIN_PATH if launches.get(k, 0) <= 0]
+    if missing:
+        raise RuntimeError(f"cli: kernels never launched: {missing} ({launches})")
+    loads = ", ".join(f"{k} {sum(v[0].load_timings.values()):.2f}s (" + ", ".join(
+        f"{stage} {sec:.2f}" for stage, sec in v[0].load_timings.items()) + ")"
+        for k, v in runs.items())
+    line = (f"cli: inference.main demo_fox_meadow --use_masks --ckpt (flat SD form, "
+            f"{size / 1e9:.3f} GB {dtype}, written in {write_s:.2f}s; loads {loads}) "
+            f"--num_images {N_IMAGES} --steps {STEPS} mask preset mis 0.36: "
+            f"{runs['plain'][1]:.2f}s plain ({runs['plain'][1] / N_IMAGES:.4f} s/image incl. "
+            f"the load), {runs['lora'][1]:.2f}s with --lora (rank {LORA_RANK}, "
+            f"{len(lora) // 3} modules, scale {LORA_SCALE}); in-memory generate {gen_s:.2f}s "
+            f"({gen_s / N_IMAGES:.4f} s/image) on {card}; weights bit-equal after load; images "
+            f"vs in-memory generate max |diff| {err} uint8 (tol 1); merged {LORA_CHECK[1]} "
+            f"exact; LoRA images mean |diff| {lora_moved:.2f}; launches {launches}")
+    del runs
+    return line, launches
+
+
+def smoke_train_state(torch, dev, cfg, seed: int = 0):
+    """The smoke's full-width training state: fp32 random init, densified
+    weights, EMA, AdamW with the config's warm-up, frozen weights bf16."""
+    from instancediffusion_tpu_torch.train import optimizer as popt
+    from instancediffusion_tpu_torch.train import train_step as pts
+
+    tc = cfg.train
+    state = pts.init_train_state(cfg, seed=seed, device=dev)
+    densify_(state.unet, 11 + 10 * seed)
+    densify_(state.vae, 12 + 10 * seed)
+    densify_(state.clip, 13 + 10 * seed)
+    state.ema = popt.init_ema(state.unet)
+    state.optimizer, state.scheduler = popt.make_optimizer(
+        state.unet, tc.base_learning_rate, tc.weight_decay, tc.warmup_steps, tc.scheduler_type,
+        tc.total_iters)
+    return pts.cast_frozen_bf16(state)
+
+
+def phase_resume(torch, dev, card: str) -> tuple[str, dict]:
+    """Training save and resume at full width (Config(), B=4 at 512 px):
+    one step, save_train_ckpt into an auto-resume folder, a fresh state
+    (other random weights) that finds the checkpoint through
+    expt_folder_with_auto_resume and restores it, then one step on both
+    with the same draws. Checks equal losses, trainable parameters, EMA,
+    optimizer step counts and learning rates, and bf16 frozen weights.
+    Returns the line and the launches of the two steps."""
+    import shutil
+    import tempfile
+
+    from instancediffusion_tpu_torch import kernels
+    from instancediffusion_tpu_torch.config import Config
+    from instancediffusion_tpu_torch.io import checkpoint as ckpt_io
+    from instancediffusion_tpu_torch.ops.schedules import make_diffusion_schedule
+    from instancediffusion_tpu_torch.train import optimizer as popt
+    from instancediffusion_tpu_torch.train import train_step as pts
+
+    cfg = Config()
+    dc = cfg.diffusion
+    step = pts.make_train_step(cfg, make_diffusion_schedule(
+        dc.beta_schedule, dc.timesteps, dc.linear_start, dc.linear_end))
+    batch = train_batch(torch, dev, cfg, TRAIN_B)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    draws = [pts.sample_draws(gen, TRAIN_B, pts.latent_shape(cfg, TRAIN_IMAGE)) for _ in range(2)]
+    det = torch.backends.cudnn.deterministic
+    # deterministic convolution backward (the trainable UniFusion convs),
+    # so two states that hold equal weights take equal steps
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        a = smoke_train_state(torch, dev, cfg, seed=0)
+        a, _ = step(a, batch, draws[0])
+        folder, prev = ckpt_io.expt_folder_with_auto_resume(tmp, "resume")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt_io.save_train_ckpt(folder, a, dataclasses.asdict(cfg))
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        b = smoke_train_state(torch, dev, cfg, seed=1)
+        _, prev = ckpt_io.expt_folder_with_auto_resume(tmp, "resume")
+        if prev != path:
+            raise RuntimeError(f"resume: auto-resume found {prev}, saved {path}")
+        t0 = time.perf_counter()
+        b = ckpt_io.restore_train_ckpt(prev, b)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        a, ma = step(a, batch, draws[1])
+        b, mb = step(b, batch, draws[1])
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(tmp, ignore_errors=True)
+    pa, pb = dict(a.unet.named_parameters()), dict(b.unet.named_parameters())
+    bad = [n for n in pa if not torch.equal(pa[n], pb[n])]
+    bad += [f"ema.{n}" for n in a.ema if not torch.equal(a.ema[n], b.ema[n])]
+    frozen = [n for n, p in pb.items() if not popt.is_trainable(n) and p.dtype != torch.bfloat16]
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    steps_a = sorted({float(s["step"]) for s in sa.values()})
+    steps_b = sorted({float(s["step"]) for s in sb.values()})
+    lr_a, lr_b = a.scheduler.get_last_lr(), b.scheduler.get_last_lr()
+    loss_a, loss_b = float(ma["loss"]), float(mb["loss"])
+    per = _per_step(launches, TRAIN_PATH, 2)
+    want = dict(TRAIN_LAUNCHES, fused_ff_geglu=FF_PER_STEP["fused_ff_geglu"])
+    wrong = {k: per[k] for k, n in want.items() if per[k] != n}
+    if (bad or frozen or steps_a != steps_b or lr_a != lr_b or a.step != b.step
+            or not torch.equal(ma["loss"], mb["loss"]) or ma["skipped"] or wrong):
+        raise RuntimeError(f"resume: continued vs resumed: loss {loss_a} vs {loss_b}, "
+                           f"unequal {bad[:5]} ({len(bad)}), frozen not bf16 {frozen[:3]}, "
+                           f"optimizer steps {steps_a} vs {steps_b}, lr {lr_a} vs {lr_b}, "
+                           f"launches per step {per} (expected {want})")
+    line = (f"resume: Config() B={TRAIN_B} {TRAIN_IMAGE}px: training state "
+            f"{size / 1e9:.3f} GB (step, UNet, EMA, AdamW, schedule, VAE, CLIP) saved in "
+            f"{save_s:.2f}s, found by expt_folder_with_auto_resume and restored into a fresh "
+            f"state in {restore_s:.2f}s on {card}; next step continued vs resumed: loss "
+            f"{loss_a:.6f} both, {len(pa)} parameters and {len(a.ema)} EMA tensors equal, "
+            f"optimizer steps {steps_a}, lr {lr_a[0]:.6g}, frozen weights bf16; "
+            f"launches per step {per}")
+    del a, b
+    return line, launches
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
@@ -1442,17 +1836,9 @@ def phase_train(torch, dev, card: str) -> tuple[dict, dict]:
     from instancediffusion_tpu_torch.train import train_step as pts
 
     cfg = Config()
-    tc, dc = cfg.train, cfg.diffusion
+    dc = cfg.diffusion
     t0 = time.perf_counter()
-    state = pts.init_train_state(cfg, seed=0, device=dev)
-    densify_(state.unet, 11)
-    densify_(state.vae, 12)
-    densify_(state.clip, 13)
-    state.ema = popt.init_ema(state.unet)
-    state.optimizer, state.scheduler = popt.make_optimizer(
-        state.unet, tc.base_learning_rate, tc.weight_decay, tc.warmup_steps, tc.scheduler_type,
-        tc.total_iters)
-    state = pts.cast_frozen_bf16(state)
+    state = smoke_train_state(torch, dev, cfg)
     diffusion = make_diffusion_schedule(dc.beta_schedule, dc.timesteps, dc.linear_start,
                                         dc.linear_end)
     batch = train_batch(torch, dev, cfg, TRAIN_B)
@@ -1584,6 +1970,7 @@ def main() -> int:
     from instancediffusion_tpu_torch.kernels import _build
     from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
 
+    t_start = time.perf_counter()
     # device
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is false")
@@ -1635,7 +2022,15 @@ def main() -> int:
     log(line)
     line, launches_ddim, launches_i2i = phase_ddim_img2img(torch, pipe, card)
     log(line)
+
+    # checkpoint files: the demo CLI from a written checkpoint (and a
+    # LoRA), then training save and resume
+    line, launches_cli = phase_cli(torch, pipe, card)
+    log(line)
     del pipe, mpipe
+    torch.cuda.empty_cache()
+    line, launches_resume = phase_resume(torch, dev, card)
+    log(line)
     torch.cuda.empty_cache()
 
     # the training step at full width, unmasked then masked
@@ -1648,6 +2043,7 @@ def main() -> int:
                    "serve": launches_serve.get(name, 0),
                    "serve_unfused": launches_serve_unfused.get(name, 0),
                    "ddim": launches_ddim.get(name, 0), "img2img": launches_i2i.get(name, 0),
+                   "cli": launches_cli.get(name, 0), "resume": launches_resume.get(name, 0),
                    "train": launches_train.get(name, 0),
                    "train_masked": launches_masked.get(name, 0)}
         entry = {
@@ -1663,6 +2059,7 @@ def main() -> int:
         if name in ONLY_KERNELS_PHASE:
             entry["checked"] = ONLY_KERNELS_PHASE[name]
         kernels_json.append(entry)
+    log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_json}), flush=True)
     print(json.dumps({"ok": True, "device": {

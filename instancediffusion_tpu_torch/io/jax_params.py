@@ -61,8 +61,11 @@ def _load_module(module: torch.nn.Module, tree) -> None:
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{full}: JAX leaf {prefix}{key} converts to "
                                  f"{tuple(arr.shape)}, port has {tuple(p.shape)}")
+            # the float32 array goes to the parameter's device as it lies
+            # (a transposed view stays one: a flat copy); the transpose and
+            # the cast to the parameter's dtype happen there
             with torch.no_grad():
-                p.copy_(torch.from_numpy(np.array(arr, np.float32, order="C")).to(p.dtype))
+                p.copy_(torch.from_numpy(np.asarray(arr, np.float32)).to(p.device))
             assigned.add(full)
 
     walk(module, tree, "")

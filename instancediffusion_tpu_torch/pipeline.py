@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from instancediffusion_tpu_torch.config import Config
+from instancediffusion_tpu_torch.config import Config, apply_test_preset
 from instancediffusion_tpu_torch.data.grounding_input import (
     DEFER_EMBEDDING,
     prepare_grounding,
@@ -49,6 +49,12 @@ _SAMPLERS = {
     "dpm": (make_dpm_schedule, dpm_sample),
     "ddim": (make_ddim_schedule, ddim_sample),
 }
+
+
+def default_dtype(device) -> torch.dtype:
+    """The entry points' weight and compute dtype: bf16 on the card (the
+    kernels' dtype), float32 on the CPU."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
 
 
 def _resolve_mis(sampler: str, mis: float | None, config_mis: float) -> float:
@@ -79,6 +85,8 @@ class InstanceDiffusionPipeline:
         # host seconds per phase of the last generate / generate_batch /
         # img2img call; "sample" ends in a device synchronize
         self.last_timings: dict = {}
+        # host seconds per stage of from_checkpoint (empty otherwise)
+        self.load_timings: dict = {}
 
     @property
     def image_size(self) -> int:
@@ -100,6 +108,49 @@ class InstanceDiffusionPipeline:
         for m in models:
             m.to(dtype).eval()
         return cls(cfg, *models)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: Config | None = None, preset: str | None = None,
+                        device="cuda", dtype=torch.bfloat16,
+                        vae_encoder: bool = False) -> "InstanceDiffusionPipeline":
+        """Weights from a reference / SD1.5 checkpoint file: the flat SD form
+        or the reference training form (its EMA UNet where it has one), with
+        the stock first conv from pretrained/ when present
+        (`io/checkpoint.load_pipeline_params`), on `device` in `dtype`. A
+        key the configuration needs and the file lacks raises KeyError.
+        vae_encoder: also load the VAE's encoder (img2img needs it). The
+        host seconds of each stage land in the pipeline's `load_timings`:
+        read, numpy, convert (`load_pipeline_params`), init (the modules on
+        `device`) and fill (`load_jax_params`, synchronised)."""
+        from instancediffusion_tpu_torch.io import checkpoint as ckpt_io
+        from instancediffusion_tpu_torch.io.jax_params import load_jax_params
+
+        cfg = cfg or Config()
+        if preset:
+            cfg = apply_test_preset(cfg, preset)
+        timings: dict = {}
+        trees = ckpt_io.load_pipeline_params(path, cfg, timings)
+        if not vae_encoder:
+            trees["vae"] = {k: trees["vae"][k] for k in ("decoder", "post_quant_conv")}
+        t0 = time.perf_counter()
+        pipe = cls.random_init(cfg, seed=0, device=device, dtype=dtype, vae_encoder=vae_encoder)
+        t1 = time.perf_counter()
+        load_jax_params(pipe, **trees)
+        if pipe.device.type == "cuda":
+            torch.cuda.synchronize(pipe.device)
+        timings.update(init=t1 - t0, fill=time.perf_counter() - t1)
+        pipe.load_timings = timings
+        return pipe
+
+    def load_lora(self, path: str, scale: float = 1.0,
+                  include_text_encoder: bool = True) -> dict:
+        """Merge a community SD1.5 LoRA (kohya / diffusers-PEFT formats) into
+        the frozen backbone weights in place (`io/lora.merge_lora`). Returns
+        the merge stats; a base-model shape mismatch raises ValueError."""
+        from instancediffusion_tpu_torch.io import lora as lora_io
+
+        return lora_io.merge_lora(self.unet, lora_io.load_lora_file(path), scale=scale,
+                                  clip=self.clip if include_text_encoder else None)
 
     def _check_tokenizer(self):
         if getattr(self.tokenizer, "is_fallback", False):

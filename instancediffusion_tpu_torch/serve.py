@@ -17,11 +17,12 @@ Endpoints (stdlib http.server):
 The PNG is encoded with zlib and struct (no imaging library needed).
 
     python -m instancediffusion_tpu_torch.serve --steps 20 --sampler dpm \\
-        --batch_size 8 --port 8321
+        --batch_size 8 --port 8321 [--ckpt pretrained/instancediffusion_sd15.pth]
 
-There is no checkpoint loader yet: `--ckpt` raises, and without it the
-weights are random (seeded), with the hash tokenizer standing in for CLIP's
-BPE files where they are missing (IDTPU_ALLOW_HASH_TOKENIZER=1).
+`--ckpt` loads a reference / SD1.5 checkpoint (`from_checkpoint`); without
+it, or when the file is missing (a warning), the weights are random
+(seeded). The hash tokenizer stands in for CLIP's BPE files where they are
+missing (IDTPU_ALLOW_HASH_TOKENIZER=1).
 """
 
 from __future__ import annotations
@@ -29,15 +30,17 @@ from __future__ import annotations
 import base64
 import collections
 import json
+import os
 import queue
-import struct
 import threading
 import time
-import zlib
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+from instancediffusion_tpu_torch.config import Config, apply_test_preset
+from instancediffusion_tpu_torch.io.png import png_bytes
 
 
 class BatchingQueue:
@@ -115,24 +118,6 @@ class BatchingQueue:
                 for _, _, fut in items:
                     if not fut.done():
                         fut.set_exception(e)
-
-
-def png_bytes(img: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 -> PNG bytes: 8-bit RGB, no interlace, filter 0 on
-    every row, one zlib stream."""
-    img = np.ascontiguousarray(img, dtype=np.uint8)
-    if img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"png_bytes takes (H, W, 3) uint8, got {img.shape}")
-    h, w, _ = img.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        body = kind + data
-        return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
-
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
 def make_handler(batcher: BatchingQueue, device_desc: str):
@@ -221,6 +206,22 @@ def serve(pipe, host: str = "127.0.0.1", port: int = 8321, batch_size: int = 8,
     return server
 
 
+def build_pipeline(ckpt: str | None, test_config: str = "box", seed: int = 0,
+                   device="cuda"):
+    """The served pipeline: the checkpoint's weights when `ckpt` names a
+    file; otherwise seeded random ones (with a warning when `ckpt` was given
+    but is missing). bf16 on the card, float32 on the CPU."""
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline, default_dtype
+
+    cfg = apply_test_preset(Config(), test_config)
+    dtype = default_dtype(device)
+    if ckpt and os.path.exists(ckpt):
+        return InstanceDiffusionPipeline.from_checkpoint(ckpt, cfg, device=device, dtype=dtype)
+    if ckpt:
+        print(f"warning: checkpoint {ckpt} not found; random init", flush=True)
+    return InstanceDiffusionPipeline.random_init(cfg, seed=seed, device=device, dtype=dtype)
+
+
 def main(argv=None):
     import argparse
 
@@ -236,18 +237,11 @@ def main(argv=None):
     p.add_argument("--alpha", type=float, default=0.75)
     p.add_argument("--mis", type=float, default=0.0)
     p.add_argument("--sampler", type=str, default="plms", choices=["plms", "dpm", "ddim"])
-    p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random weights (without --ckpt)")
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError("--ckpt: the port has no checkpoint loader yet; run "
-                                  "without it for seeded random weights")
-
-    from instancediffusion_tpu_torch.config import Config, apply_test_preset
-    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
-
-    cfg = apply_test_preset(Config(), args.test_config)
-    pipe = InstanceDiffusionPipeline.random_init(cfg, seed=args.seed, device=args.device)
+    pipe = build_pipeline(args.ckpt, args.test_config, args.seed, args.device)
     server = serve(pipe, host=args.host, port=args.port, batch_size=args.batch_size,
                    max_wait_ms=args.max_wait_ms, steps=args.steps,
                    guidance_scale=args.guidance_scale, alpha=args.alpha, mis=args.mis,

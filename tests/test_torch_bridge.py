@@ -185,17 +185,22 @@ def test_port_config_rejects_unknown_keys():
 
 
 def test_port_import_leaves_jax_out():
-    """Importing every port module imports neither JAX nor the JAX package
-    (fresh interpreter)."""
+    """Importing every port module imports neither JAX nor the JAX package,
+    nor PIL, cv2 or safetensors: the port needs none of them (fresh
+    interpreter)."""
     code = (
         "import sys\n"
         "import instancediffusion_tpu_torch.pipeline, instancediffusion_tpu_torch.io.jax_params\n"
         "import instancediffusion_tpu_torch.kernels.flash_attention\n"
         "import instancediffusion_tpu_torch.kernels.geglu_ff\n"
         "import instancediffusion_tpu_torch.kernels.head_layout\n"
-        "import instancediffusion_tpu_torch.serve\n"
+        "import instancediffusion_tpu_torch.serve, instancediffusion_tpu_torch.inference\n"
+        "import instancediffusion_tpu_torch.io.checkpoint, instancediffusion_tpu_torch.io.lora\n"
+        "import instancediffusion_tpu_torch.io.torch_convert, instancediffusion_tpu_torch.io.png\n"
+        "import instancediffusion_tpu_torch.data.geometry\n"
         "import instancediffusion_tpu_torch.samplers.dpm, instancediffusion_tpu_torch.samplers.ddim\n"
-        "mods = [m for m in sys.modules if m.split('.')[0] in ('jax', 'instancediffusion_tpu')]\n"
+        "banned = ('jax', 'instancediffusion_tpu', 'PIL', 'cv2', 'safetensors')\n"
+        "mods = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not mods, mods\n"
         "assert 'triton' not in sys.modules\n"
     )

@@ -878,3 +878,85 @@ def test_tiny_fp32_generate_on_card(dev, monkeypatch):
     assert imgs.shape == ref.shape and imgs.dtype == ref.dtype
     assert int(imgs.max()) != int(imgs.min())
     assert abs(imgs.astype(int) - ref.astype(int)).max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# checkpoint files and the demo CLI on the card
+# ---------------------------------------------------------------------------
+
+
+def _ckpt_config():
+    """A tiny config a reference-format checkpoint can fill (ConvNeXt-T in
+    the seg branch) and the demo CLI can feed (20 scribble and 256 polygon
+    points, 512x512 segs, up to 4 instances)."""
+    from instancediffusion_tpu_torch.config import load_config
+
+    gcfg = dict(in_dim=32, out_dim=32, mid_dim=32, fourier_freqs=4, fourier_freqs_polygons=4,
+                n_scribble_points=20, n_polygon_points=256, seg_channels=4,
+                seg_resize_input=512, convnext_feature_dim=3072)
+    return load_config(overrides=dict(
+        model=dict(image_size=8, model_channels=32, num_heads=4, context_dim=32, max_objs=4,
+                   grounding_tokenizer=gcfg, channel_mult=(1,), num_res_blocks=1,
+                   attention_resolutions=(1,), use_checkpoint=False),
+        autoencoder=dict(ch=32, ch_mult=(1, 2), resolution=64),
+        text_encoder=dict(vocab_size=512, hidden_size=32, intermediate_size=64,
+                          num_hidden_layers=2, num_attention_heads=4)))
+
+
+def _write_ckpt(path, cfg):
+    import chip_smoke
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
+
+    src = InstanceDiffusionPipeline.random_init(cfg, seed=0, device="cpu", dtype=torch.bfloat16,
+                                                vae_encoder=True)
+    for i, m in enumerate((src.unet, src.vae, src.clip)):
+        chip_smoke.densify_(m, i + 1)
+    torch.save(chip_smoke.reference_state_dict(src.unet, src.vae, src.clip), path)
+
+
+@pytest.mark.cuda
+def test_from_checkpoint_on_card_equals_cpu_load(dev, tmp_path):
+    """from_checkpoint on the card gives bf16 CUDA weights equal to the
+    same file loaded on the CPU."""
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
+
+    cfg = _ckpt_config()
+    path = str(tmp_path / "tiny.pth")
+    _write_ckpt(path, cfg)
+    on_card = InstanceDiffusionPipeline.from_checkpoint(path, cfg, device=dev)
+    on_cpu = InstanceDiffusionPipeline.from_checkpoint(path, cfg, device="cpu")
+    assert on_card.device.type == "cuda" and on_card.dtype == torch.bfloat16
+    for part in ("unet", "vae", "clip"):
+        want = dict(getattr(on_cpu, part).named_parameters())
+        for n, p in getattr(on_card, part).named_parameters():
+            assert p.is_cuda and p.dtype == want[n].dtype == torch.bfloat16, n
+            assert torch.equal(p.cpu(), want[n]), n
+
+
+@pytest.mark.cuda
+def test_cli_writes_pngs_from_the_card(dev, tmp_path, monkeypatch):
+    """inference.main (device cuda by default) on a tiny checkpoint and the
+    fox demo with --use_masks writes two images and the boxes image."""
+    import os
+
+    import numpy as np
+
+    from instancediffusion_tpu_torch import inference
+    from instancediffusion_tpu_torch.io.png import read_png
+
+    cfg = _ckpt_config()
+    path = str(tmp_path / "tiny.pth")
+    _write_ckpt(path, cfg)
+    monkeypatch.setenv("IDTPU_ALLOW_HASH_TOKENIZER", "1")
+    monkeypatch.setattr(inference, "Config", lambda: cfg)
+    demo = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demos",
+                        "demo_fox_meadow.json")
+    paths = inference.main(["--input_json", demo, "--use_masks", "--ckpt", path,
+                            "--num_images", "2", "--steps", "4",
+                            "--output", str(tmp_path / "out")])
+    assert len(paths) == 2
+    for p in paths:
+        img = read_png(open(p, "rb").read())
+        assert img.shape == (16, 16, 3) and int(img.max()) > int(img.min())
+    boxes = read_png((tmp_path / "out" / "gc7.5-seed0-alpha0.75" / "0_boxes.png").read_bytes())
+    assert boxes.shape == (512, 512, 3) and (boxes == 0).any()

@@ -114,9 +114,24 @@ def test_png_bytes_round_trip(shape):
         serve.png_bytes(img[..., 0])
 
 
-def test_main_refuses_a_checkpoint():
-    with pytest.raises(NotImplementedError, match="checkpoint loader"):
-        serve.main(["--ckpt", "weights.pth"])
+def test_main_refuses_a_checkpoint(monkeypatch):
+    """--ckpt is no longer refused: main hands it, with the preset, seed and
+    device, to build_pipeline (whose loading and missing-file fallback
+    tests/test_torch_inference.py checks) before any server starts."""
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def build(ckpt, test_config, seed, device):
+        seen.update(ckpt=ckpt, test_config=test_config, seed=seed, device=device)
+        raise Built
+
+    monkeypatch.setattr(serve, "build_pipeline", build)
+    monkeypatch.setattr(serve, "serve", lambda *a, **k: pytest.fail("server started"))
+    with pytest.raises(Built):
+        serve.main(["--ckpt", "weights.pth", "--device", "cpu"])
+    assert seen == {"ckpt": "weights.pth", "test_config": "box", "seed": 0, "device": "cpu"}
 
 
 @pytest.fixture(scope="module")
