@@ -49,7 +49,7 @@ Phases, in order (each prints its lines; any failure exits non-zero):
              images (strength 0.5 of 50 PLMS steps, B=8): two requests each,
              s/image and launches
   cli        the demo CLI from checkpoint files: the smoke's bf16 weights
-             written as a flat SD-form checkpoint (`reference_state_dict`,
+             written as a flat SD-form checkpoint (`io/checkpoint.reference_state_dict`,
              the stock first conv in pretrained/) and a kohya LoRA on the ds1
              attentions, then `inference.main` in-process on
              demos/demo_fox_meadow.json --use_masks (8 images, 50 steps, mask
@@ -72,6 +72,18 @@ Phases, in order (each prints its lines; any failure exits non-zero):
              memory, launches per step against the expected counts; (d) the
              "mask" preset with use_masked_att: 3 steps through the labeled
              trainable kernels
+  trainer    the training driver as users run it: 12 JSON records of the
+             committed fixture JPEGs (tests/torch_fixtures/jpeg; their decode
+             and center crop first held to PIL's recorded hashes), the
+             loader's stages timed on one B=4 batch, the smoke's weights as a
+             flat SD-form --official_ckpt, then `python -m
+             instancediffusion_tpu_torch.launch` in a subprocess (Config(),
+             B=4, 6 steps, checkpoint_latest every 3, a tagged checkpoint and
+             one 50-step sample grid at step 6) and again to 8 steps, which
+             must auto-resume at 6: finite losses, the step counts, the
+             tag00 / tag01 layout, the (2048, 1024) RGB grid and
+             captions.txt, launches per step; loader, data wait, s/step,
+             samples/s, peak memory, load / save / restore and grid seconds
 The kernels phase also holds the training kernels (forward with
 log-sum-exp, dq, dk/dv, unlabeled and labeled) against their plain versions
 at the training shapes. Every kernel line gives its time, its plain
@@ -98,8 +110,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 STEPS = 50
@@ -1046,81 +1060,6 @@ def densify_(module, seed: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-class _KeyProbe(dict):
-    """A state dict that holds every key: reading key k returns a
-    (1, 1, 1, 1) array holding k's position in `read`, so the tree a
-    converter builds from it says which reference key each leaf came from
-    (transposes and copies keep the value)."""
-
-    def __init__(self):
-        super().__init__()
-        self.read: list[str] = []
-
-    def __contains__(self, key) -> bool:
-        return True
-
-    def __getitem__(self, key):
-        import numpy as np
-
-        self.read.append(key)
-        return np.full((1, 1, 1, 1), len(self.read) - 1, np.float64)
-
-
-def _reference_names(module, convert) -> dict:
-    """{port parameter name: reference key} of a module, read off the tree
-    `convert(probe)` builds: a parameter's tree path is its name with the
-    leaf renamed as `io/jax_params` maps it (Linear / Conv2d weight -> w,
-    bias -> b; Norm weight -> scale). The UNet's stock first conv is not
-    part of the reference form (pretrained/SD_v1_5_input_conv_weight_bias.pth
-    holds it) and is left out."""
-    from instancediffusion_tpu_torch.nn.core import Conv2d, Linear, Norm
-
-    probe = _KeyProbe()
-    tree = convert(probe)
-    names = {}
-    for name, _ in module.named_parameters():
-        if name.startswith("first_conv_sd."):
-            continue
-        head, _, leaf = name.rpartition(".")
-        owner = module.get_submodule(head) if head else module
-        if isinstance(owner, (Linear, Conv2d)) and leaf in ("weight", "bias"):
-            leaf = "w" if leaf == "weight" else "b"
-        elif isinstance(owner, Norm) and leaf == "weight":
-            leaf = "scale"
-        node = tree
-        for part in (head.split(".") if head else []) + [leaf]:
-            node = node[int(part)] if isinstance(node, list) else node[part]
-        names[name] = probe.read[int(node.reshape(-1)[0])]
-    if len(set(names.values())) != len(names):
-        raise RuntimeError("two parameters map to one reference key")
-    return names
-
-
-def reference_state_dict(unet=None, vae=None, clip=None) -> dict:
-    """The port's modules as a flat SD-form checkpoint (reference key ->
-    CPU tensor in the module's dtype), the inverse of the converters in
-    `io/torch_convert`: UNet under model.diffusion_model., the VAE (which
-    needs its encoder) under first_stage_model., CLIP under
-    cond_stage_model.transformer.text_model., without the UNet's stock
-    first conv. Reference layouts equal the port's (Linear (out, in), conv
-    OIHW), so every tensor is copied as it is."""
-    from instancediffusion_tpu_torch.io import torch_convert as tc
-
-    parts = (
-        (unet, "model.diffusion_model.", lambda m: lambda sd: tc.convert_unet(sd, m.cfg)),
-        (vae, "first_stage_model.", lambda m: lambda sd: tc.convert_vae(sd, m.cfg)),
-        (clip, "cond_stage_model.", lambda m: lambda sd: tc.convert_clip_text(sd, m.cfg)),
-    )
-    out = {}
-    for module, prefix, converter in parts:
-        if module is None:
-            continue
-        params = dict(module.named_parameters())
-        for name, key in _reference_names(module, converter(module)).items():
-            out[prefix + key] = params[name].detach().to("cpu", copy=True)
-    return out
-
-
 # the LoRA the cli phase merges: kohya names of the ds1 spatial
 # transformers (diffusers down_blocks.0 attentions 0-1, up_blocks.3
 # attentions 0-2), attn1 / attn2 to_q and to_out.0, and one proj_out
@@ -1552,13 +1491,11 @@ def phase_cli(torch, pipe, card: str) -> tuple[str, dict]:
     (same meta and seed), that the merged weight is W + scale * up @ down at
     the checked module and the LoRA images differ, and that K1-K5 launched
     in the plain run. Returns the line and the plain run's launches."""
-    import shutil
-    import tempfile
-
     import numpy as np
 
     from instancediffusion_tpu_torch import inference, kernels
     from instancediffusion_tpu_torch.config import Config, apply_test_preset
+    from instancediffusion_tpu_torch.io import checkpoint as ckpt_io
     from instancediffusion_tpu_torch.io.checkpoint import FIRST_CONV_FILE
     from instancediffusion_tpu_torch.io.png import read_png
     from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
@@ -1570,7 +1507,7 @@ def phase_cli(torch, pipe, card: str) -> tuple[str, dict]:
     try:
         t0 = time.perf_counter()
         ckpt = os.path.join(tmp, "instancediffusion_smoke.pth")
-        torch.save(reference_state_dict(pipe.unet, pipe.vae, pipe.clip), ckpt)
+        torch.save(ckpt_io.reference_state_dict(pipe.unet, pipe.vae, pipe.clip), ckpt)
         os.makedirs(os.path.join(tmp, "pretrained"))
         conv = pipe.unet.first_conv_sd
         torch.save({"weight": conv.weight.detach().cpu(), "bias": conv.bias.detach().cpu()},
@@ -1690,9 +1627,6 @@ def phase_resume(torch, dev, card: str) -> tuple[str, dict]:
     with the same draws. Checks equal losses, trainable parameters, EMA,
     optimizer step counts and learning rates, and bf16 frozen weights.
     Returns the line and the launches of the two steps."""
-    import shutil
-    import tempfile
-
     from instancediffusion_tpu_torch import kernels
     from instancediffusion_tpu_torch.config import Config
     from instancediffusion_tpu_torch.io import checkpoint as ckpt_io
@@ -1767,6 +1701,79 @@ def phase_resume(torch, dev, card: str) -> tuple[str, dict]:
 
 
 # ---------------------------------------------------------------------------
+# training records from the committed fixture JPEGs
+# ---------------------------------------------------------------------------
+
+FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures",
+                           "jpeg")
+PHRASES = ("person", "dog", "cat", "car", "bicycle", "chair", "cup", "bench", "bird", "kite")
+
+
+def fixture_jpegs() -> list[str]:
+    """The fixture JPEG file names, sorted (tools/make_torch_jpeg_fixtures.py)."""
+    return sorted(f for f in os.listdir(FIXTURE_DIR) if f.endswith(".jpg"))
+
+
+def training_records(n: int = 12, seed: int = 0) -> list[dict]:
+    """n training records in the format tools/coco_to_training_jsons.py
+    writes, built without an imaging library: the fixture JPEGs' own bytes
+    (cycled), 5-30 instances each (discs and rectangles inside the image)
+    with RLE masks (`geometry.rle_encode`), their bboxes taken from the
+    masks, a phrase caption, and base64 768-float embeddings; all from
+    numpy seed `seed`."""
+    import base64
+
+    import numpy as np
+
+    from instancediffusion_tpu_torch.data import geometry as geo
+    from instancediffusion_tpu_torch.data import _native
+
+    rng = np.random.default_rng(seed)
+    names = fixture_jpegs()
+    records = []
+    for i in range(n):
+        name = names[i % len(names)]
+        with open(os.path.join(FIXTURE_DIR, name), "rb") as f:
+            data = f.read()
+        w, h, _, _ = _native.jpeg_info(data)
+        y, x = np.mgrid[0:h, 0:w]
+        annos = []
+        for _ in range(int(rng.integers(5, 31))):
+            mask = np.zeros((h, w), np.uint8)
+            cx, cy = rng.uniform(0.1, 0.9) * w, rng.uniform(0.1, 0.9) * h
+            rx, ry = rng.uniform(0.04, 0.3) * w, rng.uniform(0.04, 0.3) * h
+            if rng.random() < 0.5:
+                mask[((x - cx) / rx) ** 2 + ((y - cy) / ry) ** 2 < 1] = 1
+            else:
+                mask[max(int(cy - ry), 0):int(cy + ry), max(int(cx - rx), 0):int(cx + rx)] = 1
+            ys, xs = np.nonzero(mask)
+            x0, y0 = int(xs.min()), int(ys.min())
+            phrase = PHRASES[int(rng.integers(len(PHRASES)))]
+            emb = rng.standard_normal(768).astype(np.float32)
+            annos.append({"bbox": [x0, y0, int(xs.max()) + 1 - x0, int(ys.max()) + 1 - y0],
+                          "mask": geo.rle_encode(mask), "caption": phrase,
+                          "text_embedding_before": base64.b64encode(emb.tobytes()).decode()})
+        records.append({"data_id": i, "caption": f"a photo with {len(annos)} objects ({name})",
+                        "image": base64.b64encode(data).decode(), "annos": annos})
+    return records
+
+
+def write_training_records(out_dir: str, n: int = 12, seed: int = 0) -> str:
+    """`training_records` as one JSON file each under out_dir, listed in
+    out_dir/train.txt; returns the list's path."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i, rec in enumerate(training_records(n, seed)):
+        paths.append(os.path.join(out_dir, f"{i:05d}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump(rec, f)
+    listing = os.path.join(out_dir, "train.txt")
+    with open(listing, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return listing
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
@@ -1823,8 +1830,9 @@ def _per_step(launches: dict, names, steps: int) -> dict:
     return {k: launches.get(k, 0) / steps for k in names}
 
 
-def phase_train(torch, dev, card: str) -> tuple[dict, dict]:
-    """(launches of the timed steps, launches of the masked steps)."""
+def phase_train(torch, dev, card: str) -> tuple[dict, dict, float]:
+    """(launches of the timed steps, launches of the masked steps, s/step of
+    the timed steps)."""
     import contextlib
 
     from instancediffusion_tpu_torch import kernels
@@ -1933,6 +1941,7 @@ def phase_train(torch, dev, card: str) -> tuple[dict, dict]:
         f"max_memory_allocated {peak / 2**30:.2f} GiB ({held / 2**30:.2f} allocated before "
         f"the steps) on {card}; losses "
         f"{loss_list}; launches per step {per}, unfused feed-forwards per step {routed}")
+    s_per_step = secs / TRAIN_STEPS
 
     # (d) masked training: the "mask" preset with use_masked_att
     mcfg = apply_test_preset(Config(), "mask")
@@ -1959,7 +1968,199 @@ def phase_train(torch, dev, card: str) -> tuple[dict, dict]:
     log(f"train (d): mask preset use_masked_att, 3 steps in {msecs:.3f}s "
         f"({msecs / 3:.4f} s/step), losses {mlosses}, gradients finite; "
         f"launches per step {mper}")
-    return launches, mlaunches
+    return launches, mlaunches, s_per_step
+
+
+# the trainer phase: the launcher in a subprocess, as users run it
+TRAINER_ITERS = (6, 8)  # the first run, then the resumed one
+TRAINER_TRAIN = {"ckpt_every_iters": 3, "n_sample_batches": 1, "sample_steps": STEPS,
+                 "workers": 4}
+TRAINER_RECORDS = 12
+TRAINER_TIMEOUT = 600  # seconds per launcher run
+
+
+def check_fixture_hashes() -> int:
+    """The port's decode and center crop of every fixture JPEG against the
+    SHA-256s PIL and the JAX package gave (expected.json); returns the count."""
+    import hashlib
+
+    import numpy as np
+
+    from instancediffusion_tpu_torch.data.jpeg import decode_image
+    from instancediffusion_tpu_torch.data.jsondataset import center_crop_image
+
+    with open(os.path.join(FIXTURE_DIR, "expected.json")) as f:
+        expected = json.load(f)
+    bad = []
+    for name, want in sorted(expected.items()):
+        with open(os.path.join(FIXTURE_DIR, name), "rb") as f:
+            img = decode_image(f.read())
+        crop = np.ascontiguousarray(center_crop_image(img, 512, None)[0])
+        if (hashlib.sha256(img.tobytes()).hexdigest() != want["rgb_sha256"]
+                or hashlib.sha256(crop.tobytes()).hexdigest() != want["center_crop_512_sha256"]):
+            bad.append(name)
+    if bad or not expected:
+        raise RuntimeError(f"trainer: decode / center crop differ from PIL's hashes: {bad}")
+    return len(expected)
+
+
+def loader_stages(records: list[dict], b: int = TRAIN_B, image_size: int = TRAIN_IMAGE) -> dict:
+    """Host seconds of one batch of b records through the loader's stages,
+    on one thread: image decode, RLE decode, point sampling (scribbles and
+    polygon points, the border following included), resize (BOX halving,
+    BICUBIC, NEAREST masks and the crop), and, timed apart, the whole
+    SampleDecoder plus collate (the stages and boxes, segs to float32,
+    captions, stacking)."""
+    import copy
+
+    import numpy as np
+
+    from instancediffusion_tpu_torch.data import geometry as geo
+    from instancediffusion_tpu_torch.data import jsondataset as jd
+
+    rng = np.random.default_rng(0)
+    t = dict(decode=0.0, rle=0.0, points=0.0, resize=0.0)
+    for rec in records[:b]:
+        t0 = time.perf_counter()
+        img = jd.decode_base64_image(rec["image"])
+        t1 = time.perf_counter()
+        masks = [geo.rle_decode(a["mask"]).astype(np.uint8) for a in rec["annos"]]
+        t2 = time.perf_counter()
+        for m in masks:
+            geo.sample_random_points_from_mask(m, jd.N_SCRIBBLE, rng)
+            geo.sample_sparse_points_from_mask(m, jd.N_POLYGON, rng)
+        t3 = time.perf_counter()
+        jd.center_crop_image(img, image_size, np.stack([m[:, :, 0] for m in masks]))
+        t4 = time.perf_counter()
+        for k, dt in zip(t, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            t[k] += dt
+    decoder = jd.SampleDecoder(image_size=image_size)
+    t0 = time.perf_counter()
+    jd.collate([decoder(copy.deepcopy(rec), np.random.default_rng(i))
+                for i, rec in enumerate(records[:b])])
+    t["whole"] = time.perf_counter() - t0
+    return t
+
+
+def _run_launcher(args: list[str], env: dict, log_path: str) -> tuple[float, str]:
+    """Run `python -m instancediffusion_tpu_torch.launch args` from the
+    repository root; (seconds, stdout). A non-zero exit raises with the end
+    of its output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "instancediffusion_tpu_torch.launch", *args],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=TRAINER_TIMEOUT)
+    secs = time.perf_counter() - t0
+    with open(log_path, "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"trainer: launcher {' '.join(args[-4:])} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return secs, proc.stdout
+
+
+def _trainer_stats(stdout: str) -> dict:
+    lines = [l for l in stdout.splitlines() if l.startswith("trainer stats: ")]
+    if len(lines) != 1:
+        raise RuntimeError(f"trainer: {len(lines)} stats lines in the launcher's output")
+    return json.loads(lines[0][len("trainer stats: "):])
+
+
+def phase_trainer(torch, card: str, ckpt: str, train_s_per_step: float) -> tuple[str, dict]:
+    """The training driver as users run it: 12 JSON records of the fixture
+    JPEGs (their decode and center crop first checked against PIL's
+    hashes), the smoke's weights as the --official_ckpt flat SD-form file,
+    `python -m instancediffusion_tpu_torch.launch --batch_size 4
+    --total_iters 6 --save_every_iters 6` with ckpt_every_iters 3, one
+    50-step sample batch and 4 loader threads (a .json config), then again
+    with --total_iters 8, which must auto-resume at step 6. Checks finite
+    losses, the step counts, the tag00 / tag01 layout with checkpoint_latest
+    and checkpoint_00000006, the (2048, 1024) RGB sample grid and
+    captions.txt, the launches per step, and both exit codes. Returns the
+    line and the launches of both runs (steps and sample grids)."""
+    from instancediffusion_tpu_torch.io.png import read_png
+
+    n_hashes = check_fixture_hashes()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        listing = write_training_records(os.path.join(tmp, "records"), TRAINER_RECORDS)
+        with open(listing) as f:
+            records = [json.load(open(p)) for p in f.read().split()]
+        stages = loader_stages(records)
+        config = os.path.join(tmp, "trainer.json")
+        with open(config, "w") as f:
+            json.dump({"train": TRAINER_TRAIN}, f)
+        out = os.path.join(tmp, "OUTPUT")
+        common = ["--yaml_file", config, "--train_list", listing, "--official_ckpt", ckpt,
+                  "--batch_size", str(TRAIN_B), "--save_every_iters", str(TRAINER_ITERS[0]),
+                  "--output_dir", out, "--name", "smoke"]
+        env = dict(os.environ, IDTPU_ALLOW_HASH_TOKENIZER="1")
+        torch.cuda.empty_cache()  # the launcher's process needs the card's memory
+        runs = []
+        for i, iters in enumerate(TRAINER_ITERS):
+            secs, stdout = _run_launcher(common + ["--total_iters", str(iters)], env,
+                                         os.path.join(tmp, f"launch{i}.log"))
+            runs.append((secs, stdout, _trainer_stats(stdout)))
+        first, second = runs[0][2], runs[1][2]
+        base = os.path.join(out, "smoke")
+        tags = sorted(os.listdir(base))
+        tag0 = sorted(os.listdir(os.path.join(base, "tag00")))
+        grid = read_png(open(os.path.join(base, "tag00", "samples_00000006", "batch0.png"),
+                             "rb").read())
+        captions = os.path.exists(os.path.join(base, "tag00", "samples_00000006",
+                                               "captions.txt"))
+        tag1 = sorted(os.listdir(os.path.join(base, "tag01")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    resumed = "auto-resumed from" in runs[1][1] and "at step 6" in runs[1][1]
+    losses = first["losses"] + second["losses"]
+    want_per_step = dict(TRAIN_LAUNCHES, fused_ff_geglu=FF_PER_STEP["fused_ff_geglu"])
+    per = {k: first["launches_per_step"].get(k, 0) for k in TRAIN_PATH}
+    wrong = {k: per[k] for k, n in want_per_step.items() if per[k] != n}
+    sample_missing = [k for k in PLAIN_PATH if first["sample_launches"].get(k, 0) <= 0]
+    problems = []
+    if not all(math.isfinite(x) for x in losses) or first["skipped"] or second["skipped"]:
+        problems.append(f"losses {losses}, skipped {first['skipped']} / {second['skipped']}")
+    if (first["steps"], first["final_step"], second["steps"], second["final_step"]) != (
+            6, 6, 2, 8) or not resumed:
+        problems.append(f"steps {first['steps']} to {first['final_step']}, then "
+                        f"{second['steps']} to {second['final_step']}, resumed {resumed}")
+    if tags != ["tag00", "tag01"] or not {"checkpoint_latest", "checkpoint_00000006",
+                                          "samples_00000006"} <= set(tag0) \
+            or "checkpoint_latest" not in tag1:
+        problems.append(f"layout {tags}: tag00 {tag0}, tag01 {tag1}")
+    if grid.shape != (2048, 1024, 3) or not captions:
+        problems.append(f"sample grid {grid.shape}, captions.txt {captions}")
+    if wrong or sample_missing:
+        problems.append(f"launches per step {per} (expected {want_per_step}); sample grid "
+                        f"kernels never launched {sample_missing}")
+    if problems:
+        raise RuntimeError("trainer: " + "; ".join(problems))
+    launches: dict = {}
+    for st in (first, second):
+        for k, v in st["launches_per_step"].items():
+            launches[k] = launches.get(k, 0) + round(v * st["steps"])
+        for k, v in st["sample_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    stage_txt = ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+    line = (f"trainer: python -m instancediffusion_tpu_torch.launch --official_ckpt (flat SD "
+            f"form) B={TRAIN_B} {TRAIN_IMAGE}px, {TRAINER_RECORDS} JPEG records ({n_hashes} "
+            f"fixtures' decode and center crop equal PIL's hashes), {TRAINER_ITERS[0]} steps "
+            f"then resumed at 6 to {TRAINER_ITERS[1]}: runs {runs[0][0]:.1f}s / "
+            f"{runs[1][0]:.1f}s; loader s/batch by stage on one thread ({stage_txt}); "
+            f"{TRAINER_TRAIN['workers']} decode processes: data wait {first['data_wait_s']:.4f} "
+            f"s/step (within an epoch {first['data_wait_within_epoch_s']:.4f}, at an epoch's "
+            f"first step {first['data_wait_epoch_start_s']:.4f}), {first['step_s']:.4f} s/step "
+            f"(first step {first['first_step_s']:.2f}s; the train phase's synthetic batch "
+            f"{train_s_per_step:.4f} s/step), {first['samples_per_s']:.3f} samples/s, peak "
+            f"{first.get('peak_memory_gib', float('nan')):.2f} GiB; checkpoint load "
+            f"{first['pretrained_s']:.2f}s, saves {[round(x, 2) for x in first['save_s']]} s, "
+            f"restore {second['restore_s']:.2f}s, sample grid (1 batch, {STEPS} PLMS steps) "
+            f"{[round(x, 2) for x in first['samples_s']]} s on {card}; losses "
+            + ", ".join("%.4f" % x for x in losses)
+            + f"; launches per step {per}; sample grid launches {first['sample_launches']}")
+    return line, launches
 
 
 def main() -> int:
@@ -1967,6 +2168,7 @@ def main() -> int:
 
     # the port itself (in a directory without it, this fails before any output)
     from instancediffusion_tpu_torch.config import Config, apply_test_preset
+    from instancediffusion_tpu_torch.io import checkpoint as ckpt_io
     from instancediffusion_tpu_torch.kernels import _build
     from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
 
@@ -2027,14 +2229,26 @@ def main() -> int:
     # LoRA), then training save and resume
     line, launches_cli = phase_cli(torch, pipe, card)
     log(line)
-    del pipe, mpipe
-    torch.cuda.empty_cache()
-    line, launches_resume = phase_resume(torch, dev, card)
-    log(line)
-    torch.cuda.empty_cache()
+    # the trainer phase's --official_ckpt: the same weights as a flat SD-form file
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_trainer_ckpt_")
+    try:
+        trainer_ckpt = os.path.join(ckpt_dir, "smoke_sd15_form.pth")
+        torch.save(ckpt_io.reference_state_dict(pipe.unet, pipe.vae, pipe.clip), trainer_ckpt)
+        del pipe, mpipe
+        torch.cuda.empty_cache()
+        line, launches_resume = phase_resume(torch, dev, card)
+        log(line)
+        torch.cuda.empty_cache()
 
-    # the training step at full width, unmasked then masked
-    launches_train, launches_masked = phase_train(torch, dev, card)
+        # the training step at full width, unmasked then masked
+        launches_train, launches_masked, train_s_per_step = phase_train(torch, dev, card)
+        torch.cuda.empty_cache()
+
+        # the training driver: the launcher in a subprocess, then resumed
+        line, launches_trainer = phase_trainer(torch, card, trainer_ckpt, train_s_per_step)
+        log(line)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     kernels_json = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -2045,7 +2259,8 @@ def main() -> int:
                    "ddim": launches_ddim.get(name, 0), "img2img": launches_i2i.get(name, 0),
                    "cli": launches_cli.get(name, 0), "resume": launches_resume.get(name, 0),
                    "train": launches_train.get(name, 0),
-                   "train_masked": launches_masked.get(name, 0)}
+                   "train_masked": launches_masked.get(name, 0),
+                   "trainer": launches_trainer.get(name, 0)}
         entry = {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -2,7 +2,8 @@
 `instancediffusion_tpu/data/geometry.py`, copied, with numpy in place of
 cv2): COCO RLE masks, scribble/polygon point sampling, coordinate rescaling.
 
-  * COCO compressed-RLE decode/encode in NumPy
+  * COCO compressed-RLE decode/encode in NumPy, the decode also through
+    the native library (`data/_native.py`)
   * sample_random_points_from_mask, sample_sparse_points_from_mask,
     sample_uniform_sparse_points, reorder_scribbles /
     equally_spaced_sampling_with_replacement, convert_points,
@@ -24,6 +25,22 @@ import numpy as np
 
 
 def rle_decode(rle: dict) -> np.ndarray:
+    """{'size': [h, w], 'counts': str|bytes|list} -> (h, w, 1) uint8 mask;
+    compressed counts through the native library (`native/dataops.cpp`),
+    `rle_decode_numpy` otherwise and for malformed counts."""
+    counts = rle["counts"]
+    if not isinstance(counts, list):
+        from instancediffusion_tpu_torch.data._native import rle_decode_native
+
+        h, w = rle["size"]
+        nat = rle_decode_native(counts.encode("ascii") if isinstance(counts, str) else counts,
+                                int(h), int(w))
+        if nat is not None:
+            return nat[:, :, None]
+    return rle_decode_numpy(rle)
+
+
+def rle_decode_numpy(rle: dict) -> np.ndarray:
     """{'size': [h, w], 'counts': str|bytes|list} -> (h, w, 1) uint8 mask.
 
     COCO RLE is column-major runs alternating 0/1; the compressed string
@@ -175,6 +192,14 @@ def _follow_border(img: np.ndarray, y0: int, x0: int, is_hole: bool) -> np.ndarr
 
 
 def find_contours(mask: np.ndarray) -> list[np.ndarray]:
+    """`find_contours_numpy`'s contours, traced by the native library
+    (`native/contours.cpp`)."""
+    from instancediffusion_tpu_torch.data._native import find_contours_native
+
+    return find_contours_native(mask != 0)[::-1]
+
+
+def find_contours_numpy(mask: np.ndarray) -> list[np.ndarray]:
     """cv2.findContours(mask, cv2.RETR_LIST, cv2.CHAIN_APPROX_NONE)'s
     contours: every outer and hole border of the nonzero pixels of a 2-D
     mask as (N, 2) int32 (x, y) points, each in OpenCV's order (from the
@@ -216,6 +241,20 @@ def resize_nearest(img: np.ndarray, width: int, height: int) -> np.ndarray:
 
 
 def sample_uniform_sparse_points(
+    binary_mask: np.ndarray, k: int, rng: np.random.Generator | None = None
+) -> list[tuple[float, float]]:
+    """`sample_uniform_sparse_points_numpy`, its ranking in the native
+    library (`native/contours.cpp`); masks with fewer than k foreground
+    pixels take the numpy path (it draws from rng)."""
+    from instancediffusion_tpu_torch.data._native import uniform_sparse_points_native
+
+    n, pts = uniform_sparse_points_native(binary_mask, k)
+    if pts is None:
+        return sample_uniform_sparse_points_numpy(binary_mask, k, rng)
+    return [(float(x), float(y)) for x, y in pts.tolist()]
+
+
+def sample_uniform_sparse_points_numpy(
     binary_mask: np.ndarray, k: int, rng: np.random.Generator | None = None
 ) -> list[tuple[float, float]]:
     """Interior sampling (decode_item.py:186-216): rank foreground pixels by

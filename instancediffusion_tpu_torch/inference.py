@@ -16,8 +16,8 @@ boxes+points (+explicit scribbles) only. Pass --use_masks to honor the
 JSON's RLE masks.
 
 Differences from the JAX CLI: the box image has the outlines only (no
-phrase or caption text); --img2img reads 8-bit RGB / RGBA PNGs already at
-the model's resolution (others raise); --cascade_strength > 0 raises (the
+phrase or caption text); --img2img reads PNGs and JPEGs already at the
+model's resolution (others raise); --cascade_strength > 0 raises (the
 SDXL refiner is not ported).
 
 Usage:
@@ -39,7 +39,8 @@ import numpy as np
 
 from instancediffusion_tpu_torch.config import Config, apply_test_preset
 from instancediffusion_tpu_torch.data import geometry as geo
-from instancediffusion_tpu_torch.io.png import png_bytes, read_png
+from instancediffusion_tpu_torch.data.jpeg import decode_image
+from instancediffusion_tpu_torch.io.png import png_bytes
 
 
 def parse_demo_json(path: str, use_masks: bool = False, rng=None) -> dict:
@@ -103,20 +104,28 @@ def draw_boxes_image(locations) -> np.ndarray:
     """White 512x512x3 uint8 with a black outline 2 pixels wide inside each
     [0, 1] xyxy box, pixel for pixel as PIL's
     ImageDraw.rectangle(outline=..., width=2) draws it (no labels)."""
-    size, width = 512, 2
+    size = 512
     img = np.full((size, size, 3), 255, np.uint8)
+    outline_boxes(img, [[int(v * size) for v in box] for box in locations], (0, 0, 0))
+    return img
+
+
+def outline_boxes(img: np.ndarray, boxes, color, width: int = 2) -> None:
+    """Draw, in place on a square (S, S, 3) uint8 image, an outline `width`
+    pixels wide inside each pixel box (x0, y0, x1, y1), as PIL's
+    ImageDraw.rectangle(outline=color, width=width) draws it."""
+    size = img.shape[0]
 
     def hline(x0, y, x1):
         if 0 <= y < size:
-            img[y, max(x0, 0):max(x1 + 1, 0)] = 0
+            img[y, max(x0, 0):max(x1 + 1, 0)] = color
 
     def vline(x, ya, yb):  # from ya towards yb, yb itself left out
         lo, hi = (ya, yb - 1) if yb > ya else (yb + 1, ya)
         if 0 <= x < size and ya != yb:
-            img[max(lo, 0):max(hi + 1, 0), x] = 0
+            img[max(lo, 0):max(hi + 1, 0), x] = color
 
-    for box in locations:
-        x0, y0, x1, y1 = (int(v * size) for v in box)
+    for x0, y0, x1, y1 in boxes:
         if y0 > y1:
             y0, y1 = y1, y0
         for i in range(width):
@@ -124,7 +133,6 @@ def draw_boxes_image(locations) -> np.ndarray:
             hline(x0, y1 - i, x1)
             vline(x1 - i, y0 + width, y1 - width + 1)
             vline(x0 + i, y0 + width, y1 - width + 1)
-    return img
 
 
 def _write_png(path: str, img: np.ndarray) -> None:
@@ -133,14 +141,15 @@ def _write_png(path: str, img: np.ndarray) -> None:
 
 
 def read_image(path: str, size: int) -> np.ndarray:
-    """An 8-bit RGB / RGBA PNG at size x size as (size, size, 3) uint8 (the
-    alpha channel dropped). Other sizes raise: there is no resampler."""
+    """A PNG or JPEG at size x size as (size, size, 3) uint8 RGB
+    (`data/jpeg.decode_image`). Other sizes raise: JAX's LANCZOS resize
+    has no counterpart here."""
     with open(path, "rb") as f:
-        img = read_png(f.read())
+        img = decode_image(f.read())
     if img.shape[:2] != (size, size):
         raise ValueError(f"--img2img {path} is {img.shape[1]}x{img.shape[0]}; this "
-                         f"configuration needs a {size}x{size} PNG")
-    return np.ascontiguousarray(img[:, :, :3])
+                         f"configuration needs a {size}x{size} image")
+    return img
 
 
 def main(argv=None) -> list[str]:

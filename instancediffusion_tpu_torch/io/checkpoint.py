@@ -23,6 +23,8 @@ import os
 import re
 import time
 
+import numpy as np
+
 from instancediffusion_tpu_torch.config import Config
 from instancediffusion_tpu_torch.io import torch_convert as tc
 
@@ -41,18 +43,15 @@ def _torch_load(path: str):
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
-def load_pipeline_params(path: str, cfg: Config, timings: dict | None = None) -> dict:
-    """{"unet", "vae", "clip"} numpy trees (the JAX package's layout, float32
-    for bf16 files) from the flat SD form or the reference training form;
-    the training form's UNet is its `ema` where it has one. The VAE tree
-    holds the encoder too. `timings`, when given, receives the host seconds
-    of reading the file ("read"), of the numpy state dicts ("numpy") and of
-    the converters ("convert")."""
+def read_checkpoint_parts(path: str, timings: dict | None = None) -> dict:
+    """{"model", "autoencoder", "text_encoder"} numpy state dicts (float32
+    for bf16 files) of a flat SD-form or reference training-form file; the
+    training form's UNet is its `ema` where it has one. `timings` receives
+    the seconds of reading the file ("read") and of the numpy state dicts
+    ("numpy")."""
     t0 = time.perf_counter()
     raw = tc.read_safetensors(path) if path.endswith(".safetensors") else _torch_load(path)
-    first_conv_sd = _maybe_first_conv_sd()
     t1 = time.perf_counter()
-
     if isinstance(raw, dict) and "model" in raw and not _is_flat_sd(raw):
         parts = {"model": raw.get("ema") or raw["model"], "autoencoder": raw["autoencoder"],
                  "text_encoder": raw["text_encoder"]}
@@ -60,13 +59,26 @@ def load_pipeline_params(path: str, cfg: Config, timings: dict | None = None) ->
     else:
         sd = raw.get("state_dict", raw) if isinstance(raw, dict) else raw
         parts = tc.split_official_ckpt(tc.to_numpy_state_dict(sd))
-    del raw
+    if timings is not None:
+        timings.update(read=t1 - t0, numpy=time.perf_counter() - t1)
+    return parts
+
+
+def load_pipeline_params(path: str, cfg: Config, timings: dict | None = None) -> dict:
+    """{"unet", "vae", "clip"} numpy trees (the JAX package's layout, float32
+    for bf16 files) from the flat SD form or the reference training form;
+    the training form's UNet is its `ema` where it has one. The VAE tree
+    holds the encoder too. `timings`, when given, receives the host seconds
+    of reading the file ("read"), of the numpy state dicts ("numpy") and of
+    the converters ("convert")."""
+    parts = read_checkpoint_parts(path, timings)
+    first_conv_sd = _maybe_first_conv_sd()
     t2 = time.perf_counter()
     trees = {"unet": tc.convert_unet(parts["model"], cfg.model, first_conv_sd),
              "vae": tc.convert_vae(parts["autoencoder"], cfg.autoencoder),
              "clip": tc.convert_clip_text(parts["text_encoder"], cfg.text_encoder)}
     if timings is not None:
-        timings.update(read=t1 - t0, numpy=t2 - t1, convert=time.perf_counter() - t2)
+        timings["convert"] = time.perf_counter() - t2
     return trees
 
 
@@ -82,6 +94,131 @@ def _maybe_first_conv_sd():
         if os.path.exists(p):
             return tc.to_numpy_state_dict(_torch_load(p))
     return None
+
+
+def merge_pretrained(state, path: str, cfg: Config, timings: dict | None = None) -> dict:
+    """Load an SD1.5 / reference checkpoint file into a training state's
+    modules, in place: every UNet parameter the file holds is copied from
+    it and every one it lacks (the new InstanceDiffusion parameters of a
+    stock SD1.5 file) keeps its init, as the reference's strict=False load
+    does (the JAX package's `trainer._merge_pretrained` merges trees, but
+    its converters raise on a file without the new parameters); the stock
+    first conv comes from pretrained/ when present, else from the file's
+    first conv; the VAE (with its encoder) and CLIP are converted whole
+    (a missing key raises). Returns {"loaded", "kept_init"} UNet parameter
+    names; `timings` receives the host seconds of reading, of the numpy
+    state dicts and of filling the modules ("fill")."""
+    import torch
+
+    from instancediffusion_tpu_torch.io.jax_params import load_jax_params
+
+    parts = read_checkpoint_parts(path, timings)
+    t0 = time.perf_counter()
+    sd = parts["model"]
+    params = dict(state.unet.named_parameters())
+    names = reference_names(state.unet, lambda probe: tc.convert_unet(probe, cfg.model))
+    first_conv = _maybe_first_conv_sd()
+    if first_conv is None and "input_blocks.0.0.weight" in sd:
+        first_conv = {k: sd[f"input_blocks.0.0.{k}"] for k in ("weight", "bias")}
+    if first_conv is not None:
+        names.update({f"first_conv_sd.{k}": k for k in ("weight", "bias")})
+        sd = dict(sd, **first_conv)
+    loaded, kept = [], []
+    with torch.no_grad():
+        for name, p in params.items():
+            key = names.get(name)
+            if key is None or key not in sd:
+                kept.append(name)
+                continue
+            arr = np.asarray(sd[key], np.float32)
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: checkpoint {key} is {arr.shape}, module {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(arr).to(p.device))
+            loaded.append(name)
+    load_jax_params(state.vae, vae=tc.convert_vae(parts["autoencoder"], cfg.autoencoder))
+    load_jax_params(state.clip, clip=tc.convert_clip_text(parts["text_encoder"], cfg.text_encoder))
+    if timings is not None:
+        timings["fill"] = time.perf_counter() - t0
+    return {"loaded": loaded, "kept_init": kept}
+
+
+# ---------------------------------------------------------------------------
+# Reference-form state dicts of the port's modules
+# ---------------------------------------------------------------------------
+
+
+class _KeyProbe(dict):
+    """A state dict that holds every key: reading key k returns a
+    (1, 1, 1, 1) array holding k's position in `read`, so the tree a
+    converter builds from it says which reference key each leaf came from
+    (transposes and copies keep the value)."""
+
+    def __init__(self):
+        super().__init__()
+        self.read: list[str] = []
+
+    def __contains__(self, key) -> bool:
+        return True
+
+    def __getitem__(self, key):
+        import numpy as np
+
+        self.read.append(key)
+        return np.full((1, 1, 1, 1), len(self.read) - 1, np.float64)
+
+
+def reference_names(module, convert) -> dict:
+    """{port parameter name: reference key} of a module, read off the tree
+    `convert(probe)` builds: a parameter's tree path is its name with the
+    leaf renamed as `io/jax_params` maps it (Linear / Conv2d weight -> w,
+    bias -> b; Norm weight -> scale). The UNet's stock first conv is not
+    part of the reference form (pretrained/SD_v1_5_input_conv_weight_bias.pth
+    holds it) and is left out."""
+    from instancediffusion_tpu_torch.nn.core import Conv2d, Linear, Norm
+
+    probe = _KeyProbe()
+    tree = convert(probe)
+    names = {}
+    for name, _ in module.named_parameters():
+        if name.startswith("first_conv_sd."):
+            continue
+        head, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(head) if head else module
+        if isinstance(owner, (Linear, Conv2d)) and leaf in ("weight", "bias"):
+            leaf = "w" if leaf == "weight" else "b"
+        elif isinstance(owner, Norm) and leaf == "weight":
+            leaf = "scale"
+        node = tree
+        for part in (head.split(".") if head else []) + [leaf]:
+            node = node[int(part)] if isinstance(node, list) else node[part]
+        names[name] = probe.read[int(node.reshape(-1)[0])]
+    if len(set(names.values())) != len(names):
+        raise RuntimeError("two parameters map to one reference key")
+    return names
+
+
+def reference_state_dict(unet=None, vae=None, clip=None) -> dict:
+    """The port's modules as a flat SD-form checkpoint (reference key ->
+    CPU tensor in the module's dtype), the inverse of the converters in
+    `io/torch_convert`: UNet under model.diffusion_model., the VAE (which
+    needs its encoder) under first_stage_model., CLIP under
+    cond_stage_model.transformer.text_model., without the UNet's stock
+    first conv. Reference layouts equal the port's (Linear (out, in), conv
+    OIHW), so every tensor is copied as it is."""
+    parts = (
+        (unet, "model.diffusion_model.", lambda m: lambda sd: tc.convert_unet(sd, m.cfg)),
+        (vae, "first_stage_model.", lambda m: lambda sd: tc.convert_vae(sd, m.cfg)),
+        (clip, "cond_stage_model.", lambda m: lambda sd: tc.convert_clip_text(sd, m.cfg)),
+    )
+    out = {}
+    for module, prefix, converter in parts:
+        if module is None:
+            continue
+        params = dict(module.named_parameters())
+        for name, key in reference_names(module, converter(module)).items():
+            out[prefix + key] = params[name].detach().to("cpu", copy=True)
+    return out
+
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """PNG files with zlib and struct alone (no imaging library): the writer
-the server and the demo CLI use, and a reader of 8-bit RGB / RGBA,
-non-interlaced images with any of the five row filters."""
+the server and the demo CLI use, and a reader of 8-bit gray, gray +
+alpha, RGB and RGBA non-interlaced images with any of the five row
+filters."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {2: 3, 6: 4}  # colour type -> channels: RGB, RGBA
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> channels: L, RGB, LA, RGBA
 
 
 def png_bytes(img: np.ndarray) -> bytes:
@@ -62,8 +63,9 @@ def _unfilter(kind: int, line: np.ndarray, prior: np.ndarray, bpp: int) -> np.nd
 
 
 def read_png(data: bytes) -> np.ndarray:
-    """PNG bytes (8-bit RGB or RGBA, non-interlaced) -> (H, W, 3 or 4) uint8.
-    Other bit depths, colour types and interlacing raise ValueError."""
+    """PNG bytes (8-bit L, LA, RGB or RGBA, non-interlaced) -> (H, W, 1, 2,
+    3 or 4) uint8. Other bit depths, colour types and interlacing raise
+    ValueError."""
     if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file")
     pos, header, idat = 8, None, []
@@ -82,7 +84,7 @@ def read_png(data: bytes) -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = header
     if depth != 8 or ctype not in _CHANNELS or interlace != 0:
         raise ValueError(f"PNG of bit depth {depth}, colour type {ctype}, interlace "
-                         f"{interlace}: only 8-bit RGB / RGBA without interlace is read")
+                         f"{interlace}: only 8-bit L / LA / RGB / RGBA without interlace is read")
     c = _CHANNELS[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
     out = np.empty((h, w * c), np.uint8)

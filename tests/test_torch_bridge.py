@@ -199,6 +199,11 @@ def test_port_import_leaves_jax_out():
         "import instancediffusion_tpu_torch.io.torch_convert, instancediffusion_tpu_torch.io.png\n"
         "import instancediffusion_tpu_torch.data.geometry\n"
         "import instancediffusion_tpu_torch.samplers.dpm, instancediffusion_tpu_torch.samplers.ddim\n"
+        "import instancediffusion_tpu_torch.launch, instancediffusion_tpu_torch.train.trainer\n"
+        "import instancediffusion_tpu_torch.train.sample_saver\n"
+        "import instancediffusion_tpu_torch.data.jsondataset, instancediffusion_tpu_torch.data.jpeg\n"
+        "import instancediffusion_tpu_torch.data.resample, instancediffusion_tpu_torch.data._native\n"
+        "import instancediffusion_tpu_torch.utils.logging\n"
         "banned = ('jax', 'instancediffusion_tpu', 'PIL', 'cv2', 'safetensors')\n"
         "mods = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not mods, mods\n"

@@ -4,7 +4,7 @@ the JAX package's converters and loaders and the parameter bridge, on the
 CPU.
 
 The files are written from densified random weights (numpy, the JAX
-package's tree structure): `chip_smoke.reference_state_dict` turns the
+package's tree structure): `io/checkpoint.reference_state_dict` turns the
 port's modules into reference key names, and the JAX package's own
 converters anchor it. Every comparison of weights is exact: the converters
 only rename and transpose.
@@ -117,8 +117,8 @@ def setup():
     cfg = ckpt_config()
     trees = reference_trees(cfg, 1)
     mods = bridged_modules(cfg, trees)
-    other = chip_smoke.reference_state_dict(**bridged_modules(cfg, reference_trees(cfg, 40)))
-    return cfg, trees, mods, chip_smoke.reference_state_dict(**mods), other
+    other = pckpt.reference_state_dict(**bridged_modules(cfg, reference_trees(cfg, 40)))
+    return cfg, trees, mods, pckpt.reference_state_dict(**mods), other
 
 
 def _write(path, form: str, flat: dict, other: dict) -> str:
@@ -208,7 +208,7 @@ def test_from_checkpoint_bf16_file_is_bit_exact(setup, tmp_path):
     cfg, trees, mods, flat, other = setup
     mods16 = bridged_modules(cfg, trees, dtype=torch.bfloat16)
     path = str(tmp_path / "ckpt16.pth")
-    torch.save(chip_smoke.reference_state_dict(**mods16), path)
+    torch.save(pckpt.reference_state_dict(**mods16), path)
     pipe = InstanceDiffusionPipeline.from_checkpoint(path, port_config(cfg), device="cpu",
                                                      dtype=torch.bfloat16, vae_encoder=True)
     for name in ("vae", "clip"):

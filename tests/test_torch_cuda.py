@@ -905,13 +905,14 @@ def _ckpt_config():
 
 def _write_ckpt(path, cfg):
     import chip_smoke
+    from instancediffusion_tpu_torch.io import checkpoint as ckpt_io
     from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
 
     src = InstanceDiffusionPipeline.random_init(cfg, seed=0, device="cpu", dtype=torch.bfloat16,
                                                 vae_encoder=True)
     for i, m in enumerate((src.unet, src.vae, src.clip)):
         chip_smoke.densify_(m, i + 1)
-    torch.save(chip_smoke.reference_state_dict(src.unet, src.vae, src.clip), path)
+    torch.save(ckpt_io.reference_state_dict(src.unet, src.vae, src.clip), path)
 
 
 @pytest.mark.cuda
@@ -960,3 +961,50 @@ def test_cli_writes_pngs_from_the_card(dev, tmp_path, monkeypatch):
         assert img.shape == (16, 16, 3) and int(img.max()) > int(img.min())
     boxes = read_png((tmp_path / "out" / "gc7.5-seed0-alpha0.75" / "0_boxes.png").read_bytes())
     assert boxes.shape == (512, 512, 3) and (boxes == 0).any()
+
+
+# ---------------------------------------------------------------------------
+# the training driver on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_trainer_on_card(dev, tmp_path, monkeypatch):
+    """The fixture JPEGs decode and center-crop to PIL's hashes on the card
+    host; then the Trainer takes 2 bf16 steps on JSON records of them at a
+    small config whose attention is long enough for the kernels (1024
+    visual tokens), through the training kernels, from pinned batches, and
+    saves checkpoint_latest."""
+    import math
+
+    import chip_smoke
+    from instancediffusion_tpu_torch.config import load_config
+    from instancediffusion_tpu_torch.train.trainer import Trainer
+
+    assert chip_smoke.check_fixture_hashes() >= 9
+    monkeypatch.setenv("IDTPU_ALLOW_HASH_TOKENIZER", "1")
+    listing = chip_smoke.write_training_records(str(tmp_path / "records"), n=4)
+    gcfg = dict(in_dim=768, out_dim=64, mid_dim=64, fourier_freqs=4, fourier_freqs_polygons=4,
+                n_scribble_points=20, n_polygon_points=256, seg_channels=30,
+                seg_resize_input=64, convnext_depths=(1, 1), convnext_dims=(32, 64),
+                convnext_feature_dim=4096)
+    cfg = load_config(overrides=dict(
+        model=dict(image_size=32, model_channels=64, num_heads=8, context_dim=64, max_objs=30,
+                   grounding_tokenizer=gcfg, channel_mult=(1,), num_res_blocks=1,
+                   attention_resolutions=(1,)),
+        autoencoder=dict(ch=32, ch_mult=(1, 2), resolution=64),
+        text_encoder=dict(vocab_size=512, hidden_size=64, intermediate_size=128,
+                          num_hidden_layers=1, num_attention_heads=4),
+        data=dict(image_size=64),
+        train=dict(batch_size=2, total_iters=2, warmup_steps=0, n_sample_batches=0,
+                   output_dir=str(tmp_path / "OUTPUT"), workers=2)))
+    kernels.reset_launch_counts()
+    trainer = Trainer(cfg, listing, device=dev)
+    assert trainer.start_training()
+    stats = trainer.stats()
+    assert stats["final_step"] == 2 and all(math.isfinite(x) for x in stats["losses"])
+    for name in ("flash_attention_trainable", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "fused_group_norm", "fused_layer_norm",
+                 "fused_ff_geglu"):
+        assert stats["launches_per_step"].get(name, 0) > 0, (name, stats["launches_per_step"])
+    assert (tmp_path / "OUTPUT" / "test" / "tag00" / "checkpoint_latest").exists()

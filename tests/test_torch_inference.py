@@ -24,7 +24,6 @@ import torch
 from PIL import Image
 from scipy import ndimage
 
-import chip_smoke
 from instancediffusion_tpu import inference as jinf
 from instancediffusion_tpu.data import geometry as jgeo
 from instancediffusion_tpu.io.lora import merge_lora as jax_merge_lora
@@ -34,6 +33,7 @@ from instancediffusion_tpu.pipeline import InstanceDiffusionPipeline as JaxPipel
 from instancediffusion_tpu_torch import inference as pinf
 from instancediffusion_tpu_torch import serve
 from instancediffusion_tpu_torch.data import geometry as pgeo
+from instancediffusion_tpu_torch.io import checkpoint as ckpt_io
 from instancediffusion_tpu_torch.io import lora as plora
 from instancediffusion_tpu_torch.io.jax_params import load_jax_params
 from instancediffusion_tpu_torch.io.png import png_bytes, read_png
@@ -363,7 +363,7 @@ def cli_files(tmp_path_factory):
     cfg = cli_config()
     trees = reference_trees(cfg, 21)
     ckpt = str(d / "tiny.pth")
-    torch.save(chip_smoke.reference_state_dict(**bridged_modules(cfg, trees)), ckpt)
+    torch.save(ckpt_io.reference_state_dict(**bridged_modules(cfg, trees)), ckpt)
     lora = {**_pair("lora_unet_down_blocks_0_attentions_0_proj_out", 32, 32, seed=11, conv=True),
             **_pair("lora_unet_down_blocks_0_attentions_0_transformer_blocks_0_attn1_to_q",
                     32, 32, seed=12),
