@@ -2073,7 +2073,7 @@ def phase_trainer(torch, card: str, ckpt: str, train_s_per_step: float) -> tuple
     hashes), the smoke's weights as the --official_ckpt flat SD-form file,
     `python -m instancediffusion_tpu_torch.launch --batch_size 4
     --total_iters 6 --save_every_iters 6` with ckpt_every_iters 3, one
-    50-step sample batch and 4 loader threads (a .json config), then again
+    50-step sample batch and 4 decode processes (a YAML config), then again
     with --total_iters 8, which must auto-resume at step 6. Checks finite
     losses, the step counts, the tag00 / tag01 layout with checkpoint_latest
     and checkpoint_00000006, the (2048, 1024) RGB sample grid and
@@ -2088,7 +2088,7 @@ def phase_trainer(torch, card: str, ckpt: str, train_s_per_step: float) -> tuple
         with open(listing) as f:
             records = [json.load(open(p)) for p in f.read().split()]
         stages = loader_stages(records)
-        config = os.path.join(tmp, "trainer.json")
+        config = os.path.join(tmp, "trainer.yaml")  # JSON is YAML
         with open(config, "w") as f:
             json.dump({"train": TRAINER_TRAIN}, f)
         out = os.path.join(tmp, "OUTPUT")

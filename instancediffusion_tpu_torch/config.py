@@ -12,7 +12,6 @@ package's.
 from __future__ import annotations
 
 import dataclasses
-import json
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -188,20 +187,16 @@ def _update_dataclass(obj: Any, updates: dict[str, Any]) -> Any:
 
 
 def load_config(path: str | None = None, overrides: dict[str, Any] | None = None) -> Config:
-    """A Config from an optional YAML file (or, by its .json extension, a
-    JSON file, which needs no PyYAML) plus a nested override dict; a key the
-    port's config does not have raises."""
+    """A Config from an optional YAML file plus a nested override dict; a
+    key the port's config does not have raises, and so does a YAML file
+    where PyYAML is not installed."""
     cfg = Config()
-    if path is not None and path.endswith(".json"):
-        with open(path) as f:
-            cfg = _update_dataclass(cfg, json.load(f))
-    elif path is not None:
+    if path is not None:
         try:
             import yaml
         except ImportError as e:
             raise RuntimeError(f"reading the YAML config {path} needs PyYAML, which is not "
-                               "installed here; pass the settings as flags or as a .json "
-                               "config file") from e
+                               "installed here; pass the settings as flags") from e
 
         with open(path) as f:
             cfg = _update_dataclass(cfg, yaml.safe_load(f) or {})

@@ -30,12 +30,15 @@ compute (the DataLoader-worker equivalent on a thin host).
 
 from __future__ import annotations
 
+import atexit
 import base64
 import collections
+import itertools
 import json
 import os
 import multiprocessing
 import queue
+import signal
 import threading
 
 import numpy as np
@@ -500,10 +503,31 @@ def collate(samples: list[dict], tokenizer=None, max_len: int = 77,
 
 _WORKER_DATASET: JsonDataset | None = None  # a decode process's own dataset
 
+# a scheduler's preemption signals (Slurm's scancel and --signal=USR1 reach
+# every process of the job) and a terminal's interrupt
+PREEMPT_SIGNALS = (signal.SIGINT, signal.SIGTERM, signal.SIGUSR1)
 
-def _init_worker(dataset: JsonDataset) -> None:
+
+def _init_worker(dataset: JsonDataset, closing) -> None:
+    """A decode process's set-up. The training process acts on a preemption
+    signal (it finishes its step, saves and exits), and it may need a batch
+    to get there, so a decode process ignores SIGINT and SIGUSR1 and ends on
+    SIGTERM only once its Prefetcher is closing (`closing` set) or its
+    parent is gone. The signals stay blocked from the pool's creation
+    (`Prefetcher._start_pool`) to here, so one sent while the process
+    starts waits for these handlers."""
     global _WORKER_DATASET
     _WORKER_DATASET = dataset
+    parent = os.getppid()
+
+    def on_sigterm(signum, frame):
+        if closing.value or os.getppid() != parent:
+            os._exit(0)
+
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    signal.signal(signal.SIGUSR1, signal.SIG_IGN)
+    signal.signal(signal.SIGTERM, on_sigterm)
+    signal.pthread_sigmask(signal.SIG_UNBLOCK, PREEMPT_SIGNALS)
 
 
 def _decode_in_worker(idx_epoch: tuple[int, int]) -> dict:
@@ -531,7 +555,8 @@ class Prefetcher:
     many spawned processes, up to two batches ahead (threads would share
     the interpreter lock with the training loop, which holds it most of a
     step); each sample keeps its own RNG, so batches and their order are
-    those of one process.
+    those of one process. The processes leave preemption signals to the
+    training process (`_init_worker`).
     With pin_memory, each numeric field of a batch comes as a torch tensor
     in pinned host memory (for a non_blocking copy to the card). A failure
     in the producer is raised in the consumer, and leaving an epoch early
@@ -562,16 +587,16 @@ class Prefetcher:
         self.pin_memory = pin_memory
         self._pool = None
 
-    def _samples(self, idxs: np.ndarray, epoch: int):
+    def _samples(self, idxs: np.ndarray, epoch: int, stop: threading.Event):
         """The epoch's samples in order: decoded here with one worker, else
-        by the processes, at most two batches ahead of the consumer."""
+        by the processes, at most two batches ahead of the consumer. Ends
+        early once `stop` is set."""
         if self.workers <= 1:
             for i in idxs:
                 yield self.ds.__getitem__(int(i), epoch)
             return
         if self._pool is None:
-            ctx = multiprocessing.get_context("spawn")
-            self._pool = ctx.Pool(self.workers, initializer=_init_worker, initargs=(self.ds,))
+            self._start_pool()
         pending: collections.deque = collections.deque()
         todo = iter(idxs)
         while True:
@@ -582,14 +607,40 @@ class Prefetcher:
                 pending.append(self._pool.apply_async(_decode_in_worker, ((int(i), epoch),)))
             if not pending:
                 return
-            yield _from_worker(pending.popleft().get())
+            while True:
+                try:
+                    sample = pending[0].get(timeout=0.1)
+                    break
+                except multiprocessing.TimeoutError:
+                    if stop.is_set():
+                        return
+            pending.popleft()
+            yield _from_worker(sample)
+
+    def _start_pool(self) -> None:
+        ctx = multiprocessing.get_context("spawn")
+        self._closing = ctx.RawValue("b", 0)
+        # the processes inherit this thread's signal mask, and so do the
+        # pool's threads, which start replacements: block the preemption
+        # signals until `_init_worker` has set its handlers
+        mask = signal.pthread_sigmask(signal.SIG_BLOCK, PREEMPT_SIGNALS)
+        try:
+            self._pool = ctx.Pool(self.workers, initializer=_init_worker,
+                                  initargs=(self.ds, self._closing))
+        finally:
+            signal.pthread_sigmask(signal.SIG_SETMASK, mask)
+        # close before multiprocessing's exit hook, whose SIGTERM the
+        # processes would ignore
+        atexit.register(self.close)
 
     def close(self) -> None:
         """End the decode processes (a later epoch starts new ones)."""
         if self._pool is not None:
+            self._closing.value = 1
             self._pool.terminate()
             self._pool.join()
             self._pool = None
+            atexit.unregister(self.close)
 
     def epoch(self, epoch: int):
         idxs = np.arange(len(self.ds))
@@ -610,11 +661,12 @@ class Prefetcher:
 
         def worker():
             try:
-                samples = self._samples(idxs[: n_batches * self.bs], epoch)
+                samples = self._samples(idxs[: n_batches * self.bs], epoch, stop)
                 for _ in range(n_batches):
+                    group = list(itertools.islice(samples, self.bs))
                     if stop.is_set():
                         return
-                    batch = collate([next(samples) for _ in range(self.bs)], self.tokenizer)
+                    batch = collate(group, self.tokenizer)
                     put(pin_batch(batch) if self.pin_memory else batch)
                 put(None)
             except BaseException as e:  # handed to the consumer, which raises it

@@ -25,7 +25,6 @@ import time
 
 import numpy as np
 
-from instancediffusion_tpu_torch.config import Config
 from instancediffusion_tpu_torch.io import torch_convert as tc
 
 FIRST_CONV_FILE = "pretrained/SD_v1_5_input_conv_weight_bias.pth"
@@ -64,24 +63,6 @@ def read_checkpoint_parts(path: str, timings: dict | None = None) -> dict:
     return parts
 
 
-def load_pipeline_params(path: str, cfg: Config, timings: dict | None = None) -> dict:
-    """{"unet", "vae", "clip"} numpy trees (the JAX package's layout, float32
-    for bf16 files) from the flat SD form or the reference training form;
-    the training form's UNet is its `ema` where it has one. The VAE tree
-    holds the encoder too. `timings`, when given, receives the host seconds
-    of reading the file ("read"), of the numpy state dicts ("numpy") and of
-    the converters ("convert")."""
-    parts = read_checkpoint_parts(path, timings)
-    first_conv_sd = _maybe_first_conv_sd()
-    t2 = time.perf_counter()
-    trees = {"unet": tc.convert_unet(parts["model"], cfg.model, first_conv_sd),
-             "vae": tc.convert_vae(parts["autoencoder"], cfg.autoencoder),
-             "clip": tc.convert_clip_text(parts["text_encoder"], cfg.text_encoder)}
-    if timings is not None:
-        timings["convert"] = time.perf_counter() - t2
-    return trees
-
-
 def _is_flat_sd(d: dict) -> bool:
     return any(k.startswith("model.diffusion_model.") for k in d)
 
@@ -96,50 +77,79 @@ def _maybe_first_conv_sd():
     return None
 
 
-def merge_pretrained(state, path: str, cfg: Config, timings: dict | None = None) -> dict:
-    """Load an SD1.5 / reference checkpoint file into a training state's
-    modules, in place: every UNet parameter the file holds is copied from
-    it and every one it lacks (the new InstanceDiffusion parameters of a
-    stock SD1.5 file) keeps its init, as the reference's strict=False load
-    does (the JAX package's `trainer._merge_pretrained` merges trees, but
-    its converters raise on a file without the new parameters); the stock
-    first conv comes from pretrained/ when present, else from the file's
-    first conv; the VAE (with its encoder) and CLIP are converted whole
-    (a missing key raises). Returns {"loaded", "kept_init"} UNet parameter
-    names; `timings` receives the host seconds of reading, of the numpy
-    state dicts and of filling the modules ("fill")."""
+def load_weights(unet, vae, clip, path: str, strict: bool = True,
+                 timings: dict | None = None) -> dict:
+    """Fill the port's UNet, VAE and CLIP, in place, from a reference / SD1.5
+    checkpoint file (`read_checkpoint_parts`). The UNet's tensors are
+    copied straight into its parameters (`load_unet`); the VAE (its
+    decoding half when it was built without an encoder) and CLIP go
+    through the converters and `load_jax_params`, and a key they need and
+    the file lacks raises. strict: as `load_unet`. Returns `load_unet`'s
+    names; `timings` receives the host seconds of reading the file
+    ("read"), of the numpy state dicts ("numpy"), of the VAE and CLIP
+    converters ("convert") and of filling the modules ("fill",
+    synchronised)."""
     import torch
 
     from instancediffusion_tpu_torch.io.jax_params import load_jax_params
 
     parts = read_checkpoint_parts(path, timings)
     t0 = time.perf_counter()
-    sd = parts["model"]
-    params = dict(state.unet.named_parameters())
-    names = reference_names(state.unet, lambda probe: tc.convert_unet(probe, cfg.model))
+    vae_tree = tc.convert_vae(parts["autoencoder"], vae.cfg)
+    if not hasattr(vae, "encoder"):
+        vae_tree = {k: vae_tree[k] for k in ("decoder", "post_quant_conv")}
+    clip_tree = tc.convert_clip_text(parts["text_encoder"], clip.cfg)
+    t1 = time.perf_counter()
+    names = load_unet(unet, parts["model"], strict)
+    load_jax_params(vae, vae=vae_tree)
+    load_jax_params(clip, clip=clip_tree)
+    device = next(unet.parameters()).device
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    if timings is not None:
+        timings.update(convert=t1 - t0, fill=time.perf_counter() - t1)
+    return names
+
+
+def load_unet(unet, sd: dict, strict: bool = True) -> dict:
+    """Copy a reference UNet state dict (numpy, `model.diffusion_model.`
+    stripped) into the port's UNet in place. The reference layouts equal
+    the port's, so each tensor is copied as it is, to the parameter that
+    `reference_names` pairs with its key. The stock first conv comes from
+    pretrained/ when present, else it is the file's first conv (the swap
+    at gate 0 is then a no-op). strict: a key the UNet needs and `sd`
+    lacks raises KeyError naming it (`from_checkpoint`: never a
+    half-random model); otherwise that parameter keeps its init (the
+    trainer's `--official_ckpt`, as the reference's strict=False load: a
+    stock SD1.5 file lacks the fusers, UniFusion and ScaleU). Returns
+    {"loaded", "kept_init"} parameter names."""
+    import torch
+
+    names = reference_names(unet, lambda probe: tc.convert_unet(probe, unet.cfg))
     first_conv = _maybe_first_conv_sd()
     if first_conv is None and "input_blocks.0.0.weight" in sd:
         first_conv = {k: sd[f"input_blocks.0.0.{k}"] for k in ("weight", "bias")}
     if first_conv is not None:
-        names.update({f"first_conv_sd.{k}": k for k in ("weight", "bias")})
-        sd = dict(sd, **first_conv)
-    loaded, kept = [], []
+        for k, v in first_conv.items():
+            names[f"first_conv_sd.{k}"] = f"first_conv_sd.{k}"
+            sd = dict(sd, **{f"first_conv_sd.{k}": v})
+    params = dict(unet.named_parameters())
+    absent = [names.get(name, name) for name in params if names.get(name) not in sd]
+    if strict and absent:
+        raise KeyError(f"{absent[0]} is not in the checkpoint"
+                       + (f" ({len(absent) - 1} more keys are missing)" if len(absent) > 1 else ""))
+    loaded = []
     with torch.no_grad():
         for name, p in params.items():
             key = names.get(name)
-            if key is None or key not in sd:
-                kept.append(name)
+            if key not in sd:
                 continue
             arr = np.asarray(sd[key], np.float32)
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: checkpoint {key} is {arr.shape}, module {tuple(p.shape)}")
             p.copy_(torch.from_numpy(arr).to(p.device))
             loaded.append(name)
-    load_jax_params(state.vae, vae=tc.convert_vae(parts["autoencoder"], cfg.autoencoder))
-    load_jax_params(state.clip, clip=tc.convert_clip_text(parts["text_encoder"], cfg.text_encoder))
-    if timings is not None:
-        timings["fill"] = time.perf_counter() - t0
-    return {"loaded": loaded, "kept_init": kept}
+    return {"loaded": loaded, "kept_init": [n for n in params if n not in set(loaded)]}
 
 
 # ---------------------------------------------------------------------------

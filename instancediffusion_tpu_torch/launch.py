@@ -3,8 +3,8 @@ reference's run_with_submitit.py + main_submitit.py), on one GPU.
 
   * the training flags of main_submitit.py:15-82 with JAX's names and
     defaults, plus --device (default cuda; --device cpu runs on the CPU)
-  * load_config(--yaml_file, flag overrides); a .yaml file needs PyYAML, a
-    .json one does not
+  * load_config(--yaml_file, flag overrides); the file needs PyYAML, and
+    raises where it is not installed
   * a SIGTERM / SIGUSR1 handler: the Trainer finishes its step, saves
     checkpoint_latest and the process exits 0, so a requeued job
     auto-resumes from OUTPUT/name/tagXX

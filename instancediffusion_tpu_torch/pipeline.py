@@ -116,29 +116,21 @@ class InstanceDiffusionPipeline:
         """Weights from a reference / SD1.5 checkpoint file: the flat SD form
         or the reference training form (its EMA UNet where it has one), with
         the stock first conv from pretrained/ when present
-        (`io/checkpoint.load_pipeline_params`), on `device` in `dtype`. A
-        key the configuration needs and the file lacks raises KeyError.
+        (`io/checkpoint.load_weights`), on `device` in `dtype`. A key the
+        configuration needs and the file lacks raises KeyError.
         vae_encoder: also load the VAE's encoder (img2img needs it). The
         host seconds of each stage land in the pipeline's `load_timings`:
-        read, numpy, convert (`load_pipeline_params`), init (the modules on
-        `device`) and fill (`load_jax_params`, synchronised)."""
+        init (the modules on `device`), then read, numpy, convert and fill
+        (`load_weights`)."""
         from instancediffusion_tpu_torch.io import checkpoint as ckpt_io
-        from instancediffusion_tpu_torch.io.jax_params import load_jax_params
 
         cfg = cfg or Config()
         if preset:
             cfg = apply_test_preset(cfg, preset)
-        timings: dict = {}
-        trees = ckpt_io.load_pipeline_params(path, cfg, timings)
-        if not vae_encoder:
-            trees["vae"] = {k: trees["vae"][k] for k in ("decoder", "post_quant_conv")}
         t0 = time.perf_counter()
         pipe = cls.random_init(cfg, seed=0, device=device, dtype=dtype, vae_encoder=vae_encoder)
-        t1 = time.perf_counter()
-        load_jax_params(pipe, **trees)
-        if pipe.device.type == "cuda":
-            torch.cuda.synchronize(pipe.device)
-        timings.update(init=t1 - t0, fill=time.perf_counter() - t1)
+        timings: dict = {"init": time.perf_counter() - t0}
+        ckpt_io.load_weights(pipe.unet, pipe.vae, pipe.clip, path, strict=True, timings=timings)
         pipe.load_timings = timings
         return pipe
 

@@ -3,7 +3,7 @@
 step, checkpoints, sample grids, logging and auto-resume, on one device.
 
 Setup, in the JAX Trainer's order: a seeded random `TrainState`; an SD1.5 /
-reference checkpoint merged into it (`io/checkpoint.merge_pretrained`: the
+reference checkpoint merged into it (`io/checkpoint.load_weights`: the
 reference's strict=False, new parameters keep their init); AdamW with its
 warm-up schedule and the EMA; frozen weights to bf16; the auto-resume
 folder OUTPUT/name/tagXX and, when an earlier tag holds checkpoint_latest,
@@ -16,9 +16,10 @@ replays epoch 0's order and draws.
 Differences from JAX: one device (no mesh; multi-GPU is not ported); the
 draws of a step come from a torch.Generator seeded seed + rank through
 `train_step.sample_draws` (`self.draws` is the hook a caller can replace,
-as the tests do with JAX's key chain); batches decode on `train.workers`
-threads and reach the device from pinned memory with non_blocking copies;
-the Trainer keeps per-step timings and kernel launches (`stats`).
+as the tests do with JAX's key chain); samples decode in `train.workers`
+spawned processes and batches reach the device from pinned memory with
+non_blocking copies; the Trainer keeps per-step timings and kernel
+launches (`stats`).
 """
 
 from __future__ import annotations
@@ -65,7 +66,8 @@ class Trainer:
         if pretrained_ckpt:
             # ingest SD1.5: frozen backbone + VAE + CLIP; new params keep init
             t0 = time.perf_counter()
-            merged = ckpt_io.merge_pretrained(state, pretrained_ckpt, cfg)
+            merged = ckpt_io.load_weights(state.unet, state.vae, state.clip, pretrained_ckpt,
+                                           strict=False)
             self.timings["pretrained_s"] = time.perf_counter() - t0
             print(f"loaded {pretrained_ckpt}: {len(merged['loaded'])} UNet parameters from "
                   f"the file, {len(merged['kept_init'])} kept at init", flush=True)

@@ -15,7 +15,9 @@ import io
 import json
 import multiprocessing
 import os
+import signal
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -149,7 +151,7 @@ def _write(records, path):
 
 
 def test_prefetcher_matches_jax_over_two_epochs(records, tmp_path):
-    """The port's Prefetcher (3 decode threads) gives JAX's batches in JAX's
+    """The port's Prefetcher (3 decode processes) gives JAX's batches in JAX's
     order over 2 epochs: the shuffle default_rng((seed, epoch)), each
     sample's default_rng((seed, epoch, idx)), collate and caption ids."""
     listing = _write(records["png"][:3] + records["jpeg"][:3], tmp_path / "recs")
@@ -202,4 +204,33 @@ def test_prefetcher_raises_producer_failures_and_stops_early(records, tmp_path):
     assert not producers()
     assert len(multiprocessing.active_children()) == 2
     loader.close()
+    assert not multiprocessing.active_children()
+
+
+def test_decode_processes_leave_preemption_signals_to_the_parent(records, tmp_path):
+    """SIGINT, SIGUSR1 and SIGTERM sent to the decode processes mid-epoch
+    (a scheduler signals every process of a job) end none of them and lose
+    no sample; close() still ends them."""
+    listing = _write(records["png"][:4], tmp_path / "recs")
+    kw = dict(image_size=64, max_boxes_per_data=4)
+    loader = pds.Prefetcher(pds.JsonDataset(listing, pds.SampleDecoder(**kw)), 1,
+                            shuffle=False, workers=2)
+    try:
+        it = loader.epoch(0)
+        batches = [next(it)]
+        procs = multiprocessing.active_children()
+        assert len(procs) == 2
+        for sig in (signal.SIGINT, signal.SIGUSR1, signal.SIGTERM):
+            for p in procs:
+                os.kill(p.pid, sig)
+        time.sleep(0.5)
+        assert all(p.is_alive() for p in procs)
+        rest = threading.Thread(target=lambda: batches.extend(it), daemon=True)
+        rest.start()
+        rest.join(60)
+        assert not rest.is_alive(), "a sample was lost"
+        assert [b["image"].shape[0] for b in batches] == [1, 1, 1, 1]
+        assert sorted(multiprocessing.active_children(), key=id) == sorted(procs, key=id)
+    finally:
+        loader.close()
     assert not multiprocessing.active_children()

@@ -13,6 +13,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 
 import pytest
 import torch
@@ -34,10 +35,10 @@ def _launch(args, env, cwd):
 
 
 def test_launcher_sigterm_saves_and_resumes(tmp_path):
-    """--device cpu on a tiny .json config: SIGTERM during training makes the
+    """--device cpu on a tiny config: SIGTERM during training makes the
     launcher save checkpoint_latest and exit 0; the next run auto-resumes
     at the saved step and trains to --total_iters."""
-    config = tmp_path / "tiny.json"
+    config = tmp_path / "tiny.yaml"  # JSON is YAML
     config.write_text(json.dumps(dict(TINY, train={"ckpt_every_iters": 1000,
                                                    "n_sample_batches": 0, "workers": 2})))
     listing = chip_smoke.write_training_records(str(tmp_path / "recs"), n=4)
@@ -73,6 +74,44 @@ def test_launcher_sigterm_saves_and_resumes(tmp_path):
     assert (tmp_path / "OUT" / "run" / "tag01" / "checkpoint_latest").exists()
 
 
+def test_launcher_sigterm_to_its_process_group_saves(tmp_path):
+    """SIGTERM to the launcher's whole process group, as a scheduler sends
+    it to every process of a job, while the decode processes decode an
+    epoch's first batch (two records a batch, four records: every other
+    step starts an epoch) and the launcher waits for it: they leave the
+    signal to the launcher, which takes its step, saves checkpoint_latest
+    and exits 0."""
+    config = tmp_path / "tiny.yaml"  # JSON is YAML
+    config.write_text(json.dumps(dict(TINY, train={"ckpt_every_iters": 1000,
+                                                   "n_sample_batches": 0, "workers": 2})))
+    listing = chip_smoke.write_training_records(str(tmp_path / "recs"), n=4)
+    env = dict(os.environ, IDTPU_ALLOW_HASH_TOKENIZER="1", PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "instancediffusion_tpu_torch.launch", "--device", "cpu",
+         "--yaml_file", str(config), "--train_list", listing, "--batch_size", "2",
+         "--output_dir", str(tmp_path / "OUT"), "--name", "run", "--total_iters", "100000"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    timer = threading.Timer(120, os.killpg, (proc.pid, signal.SIGKILL))
+    timer.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("[iter 10]"):
+                # step 10 ends epoch 4: epoch 5's samples are being decoded
+                time.sleep(0.15)
+                os.killpg(proc.pid, signal.SIGTERM)
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+    out = "".join(lines)
+    assert rc == 0, out[-3000:]
+    m = re.search(r"signal 15: saved checkpoint_latest at step (\d+)", out)
+    assert m and int(m.group(1)) >= 10, out[-3000:]
+    assert (tmp_path / "OUT" / "run" / "tag00" / "checkpoint_latest").exists()
+
+
 @pytest.mark.parametrize("flag", [["--multihost"], ["--coordinator", "localhost:1234"],
                                   ["--num_processes", "2"], ["--process_id", "1"]])
 def test_launcher_refuses_multi_gpu_flags(flag):
@@ -83,15 +122,12 @@ def test_launcher_refuses_multi_gpu_flags(flag):
 
 
 def test_yaml_config_without_pyyaml_raises(tmp_path, monkeypatch):
-    """A .yaml config without PyYAML raises saying so; a .json one loads."""
+    """A YAML config without PyYAML raises saying so."""
     path = tmp_path / "c.yaml"
     path.write_text("train:\n  batch_size: 3\n")
     monkeypatch.setitem(sys.modules, "yaml", None)
     with pytest.raises(RuntimeError, match="PyYAML"):
         load_config(str(path))
-    jpath = tmp_path / "c.json"
-    jpath.write_text(json.dumps({"train": {"batch_size": 3}}))
-    assert load_config(str(jpath)).train.batch_size == 3
 
 
 def test_metric_logger_and_profiler_trace(tmp_path):

@@ -28,11 +28,13 @@ from concurrent.futures import ThreadPoolExecutor
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def threaded_samples(self, idxs, epoch: int):
+def threaded_samples(self, idxs, epoch: int, stop):
     """`Prefetcher._samples` on a thread pool: each batch's samples decoded
     by `self.workers` threads of this process."""
     with ThreadPoolExecutor(self.workers) as pool:
         for b in range(0, len(idxs), self.bs):
+            if stop.is_set():
+                return
             yield from pool.map(lambda i: self.ds.__getitem__(int(i), epoch), idxs[b:b + self.bs])
 
 
