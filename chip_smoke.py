@@ -19,7 +19,9 @@ Phases, in order (each prints its lines; any failure exits non-zero):
              to its plain version and timed by device time (the kernels'
              durations in torch.profiler over 20 back-to-back launches),
              beside events around those 20 launches, one wrapper-timed call,
-             the library call's device time and the share of the bound
+             the library call's device time and the share of the bound;
+             and K2, K3, K4, K5 at the SDXL refiner's B=16 shapes (12 heads
+             of 64, GroupNorm up to 3072 channels, C=768 feed-forward)
   grounding  UniFusion in fp32 (ConvNeXt's LayerNorms through the kernel) on
              the slice's layout with random phrase embeddings and instance
              masks, seg tokens kept, kernels vs plain_kernels()
@@ -48,12 +50,22 @@ Phases, in order (each prints its lines; any failure exits non-zero):
   ddim       generate with DDIM (20 steps, B=8), then img2img of one of its
              images (strength 0.5 of 50 PLMS steps, B=8): two requests each,
              s/image and launches
+  refiner    the SDXL-Refiner cascade at its published widths (2.3 B UNet,
+             OpenCLIP-bigG, SD VAE at 0.13025) on densified random weights:
+             a B=2 forward at 512 px, kernels vs plain_kernels(); the B=16
+             forward's time; `refine` of 8 images at 512 px and of one at
+             1024 px (20 DDIM steps at strength 0.35: 7 kept, CFG as one 2B
+             forward), a warm-up then a timed call each: s/refine, stages,
+             peak memory, launches held to the counts the refiner's plan
+             gives (K2 140, K5 140 at 512 px)
   cli        the demo CLI from checkpoint files: the smoke's bf16 weights
              written as a flat SD-form checkpoint (`io/checkpoint.reference_state_dict`,
              the stock first conv in pretrained/) and a kohya LoRA on the ds1
              attentions, then `inference.main` in-process on
              demos/demo_fox_meadow.json --use_masks (8 images, 50 steps, mask
-             preset, mis 0.36), without and with --lora: loaded weights
+             preset, mis 0.36), without and with --lora (that run also with
+             --cascade_strength 0.35: 8 refined PNGs, the refine's K2 / K5
+             launches as its plan gives): loaded weights
              bit-equal to the in-memory ones, PNGs within one uint8 level of
              generate on the in-memory weights, the merged weight exact at
              one module, K1-K5 launched; file size, write and load seconds
@@ -253,6 +265,21 @@ FF_UNFUSED = ((256, 1280), (64, 1280))
 GN_VAE_B8 = ((4096, 512, 1e-6, "silu"), (4096, 512, 1e-6, "none"), (16384, 512, 1e-6, "silu"),
              (65536, 256, 1e-6, "silu"), (65536, 512, 1e-6, "silu"), (262144, 128, 1e-6, "silu"),
              (262144, 256, 1e-6, "silu"))
+# the SDXL refiner's B=16 forward at 512 px (8 images under CFG): its ds2
+# self-attention (12 heads of 64) on the packed kernel, its ds2 feed-forward
+# (C=768, inner 3072) on the fused kernel (clusters of three blocks), the
+# GroupNorm widths its decoder joins reach (3072 takes the wide form) and
+# its LayerNorm rows
+REFINER_ATTN = (1024, 12, 64)
+GN_REFINER_B16 = ((256, 3072, 1e-5, "silu"), (64, 3072, 1e-5, "silu"), (256, 2304, 1e-5, "silu"),
+                  (1024, 2304, 1e-5, "silu"), (1024, 1536, 1e-5, "silu"),
+                  (1024, 768, 1e-6, "none"), (4096, 384, 1e-5, "silu"))
+LN_REFINER_B16 = ((1024, 768), (256, 1536), (64, 1536))
+FF_REFINER = ((1024, 768),)
+REFINER_STRENGTH = 0.35  # the CLI's --cascade_strength in the smoke: 7 of 20 DDIM steps
+REFINER_STEPS = 20
+REFINER_PATH = ("flash_attention_packed", "fused_group_norm", "fused_layer_norm",
+                "fused_ff_geglu")
 
 # kernels each path must launch in its timed requests; no path of either
 # package reaches flash_attention_packed_labeled (labels exist at ds1 only,
@@ -573,6 +600,7 @@ def _cases(torch, dev):
     cases += _head_layout_cases(torch, randn, case)
     cases += _train_cases(torch, dev, randn, case, labels64)
     cases += _main_cases(torch, dev, randn, case)
+    cases += _refiner_cases(torch, randn, case)
     return cases
 
 
@@ -693,6 +721,58 @@ def _main_cases(torch, dev, randn, case):
             lambda x=x, sc=sc, bi=bi: F.layer_norm(x, (x.shape[-1],), sc, bi, 1e-5), PEAK_FP32))
     for cs in cases:
         cs["main"] = True
+    return cases
+
+
+def _refiner_cases(torch, randn, case):
+    """K2, K3, K4 and K5 at the SDXL refiner's B=16 forward (512 px): the
+    ds2 self-attention (12 heads of 64), the GroupNorm rows of its widest
+    joins, its LayerNorm rows and its ds2 feed-forward (C=768). Device time
+    as the main cases; reported in the kernels line under `refiner_*`."""
+    import torch.nn.functional as F
+
+    from instancediffusion_tpu_torch.kernels import flash_attention as fa
+    from instancediffusion_tpu_torch.kernels import norms
+    from instancediffusion_tpu_torch.ops.attention import sdpa_fp32
+
+    b = FUSED_UNET_B
+    n, h, c = REFINER_ATTN
+    heads = lambda t: t.reshape(b, n, h, c).transpose(1, 2)
+    q, k, v = (randn(b, n, h * c) for _ in range(3))
+    cases = [case(
+        "flash_attention_packed", f"refiner B={b} ds2 self {n}x{n} {h}x{c}",
+        lambda: fa.flash_attention_packed(q, k, v, h),
+        lambda: sdpa_fp32(heads(q), heads(k), heads(v)).transpose(1, 2).reshape(b, n, h * c),
+        BF16_REL_TOL, _attn_work("fwd", b, h, n, n, c),
+        lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)))]
+    for rows, ch, eps, act in GN_REFINER_B16:
+        x = randn(b, rows, ch, std=3.0) + 0.5
+        sc, bi = randn(ch), randn(ch)
+        xt = x.transpose(1, 2).contiguous()
+
+        def lib(xt=xt, sc=sc, bi=bi, e=eps, a=act):
+            y = F.group_norm(xt, 32, sc, bi, e)
+            return F.silu(y) if a == "silu" else y
+
+        cases.append(case(
+            "fused_group_norm", f"refiner ({b},{rows},{ch}) eps={eps} {act}",
+            lambda x=x, sc=sc, bi=bi, e=eps, a=act: norms.fused_group_norm(x, sc, bi, 32, e, a),
+            lambda x=x, sc=sc, bi=bi, e=eps, a=act: norms.group_norm_plain(x, sc, bi, 32, e, a),
+            BF16_REL_TOL, (8 * b * rows * ch, 2 * 2 * b * rows * ch + 4 * ch), lib, PEAK_FP32))
+    for rows, ch in LN_REFINER_B16:
+        x = (randn(b, rows, ch, std=2.0) + 0.3).to(torch.bfloat16)
+        sc, bi = randn(ch), randn(ch)
+        cases.append(case(
+            "fused_layer_norm", f"refiner ({b},{rows},{ch}) eps=1e-05 bfloat16",
+            lambda x=x, sc=sc, bi=bi: norms.fused_layer_norm(x, sc, bi, 1e-5),
+            lambda x=x, sc=sc, bi=bi: norms.layer_norm_plain(x, sc, bi, 1e-5),
+            BF16_REL_TOL, (8 * b * rows * ch, 2 * 2 * b * rows * ch + 4 * ch),
+            lambda x=x, sc=sc, bi=bi: F.layer_norm(x, (x.shape[-1],), sc, bi, 1e-5), PEAK_FP32))
+    for rows, ch in FF_REFINER:
+        cases.append(_ff_case(randn, case, b, rows, ch))
+        cases[-1]["label"] = "refiner " + cases[-1]["label"]
+    for cs in cases:
+        cs["main"] = cs["refiner"] = True
     return cases
 
 
@@ -888,19 +968,26 @@ def phase_kernels(torch, dev) -> dict:
                 if key not in sdpa_bwd_ms:
                     sdpa_bwd_ms[key] = device_ms(torch, fwd_bwd) - device_ms(torch, fwd)
                 lib_ms = sdpa_bwd_ms[key]
-            if "main_device_ms" not in entry:
-                entry.update(main_label=label, main_device_ms=dev_ms, main_library_ms=lib_ms,
-                             main_bound_ms=bound_ms, main_bound_by=bound_by)
-                if exp_ms is not None:
-                    entry["main_exp_bound_ms"] = exp_ms
+            which = "refiner" if cs.get("refiner") else "main"
             extra = ""
-            if name == "flash_attention" and entry["main_label"] == label:
+            if cs.get("refiner"):
+                plain_dev_ms = device_ms(torch, plain, reps=3)
+                extra = f" plain_device_ms={plain_dev_ms:.4f}"
+            if f"{which}_device_ms" not in entry:
+                entry.update({f"{which}_label": label, f"{which}_device_ms": dev_ms,
+                              f"{which}_library_ms": lib_ms, f"{which}_bound_ms": bound_ms,
+                              f"{which}_bound_by": bound_by})
+                if exp_ms is not None:
+                    entry[f"{which}_exp_bound_ms"] = exp_ms
+                if cs.get("refiner"):
+                    entry["refiner_plain_ms"] = plain_dev_ms
+            if name == "flash_attention" and entry.get("main_label") == label:
                 enc = []
                 for _ in range(MAIN_REPS):
                     kern()
                     enc.append(fa.encode_us())
                 extra = f" tensor_map_encode_us={sum(enc) / len(enc):.2f} (host, per call)"
-            if name.startswith("flash_attention_bwd") and entry["main_label"] == label:
+            if name.startswith("flash_attention_bwd") and entry.get("main_label") == label:
                 kern()
                 extra = f" tensor_map_encode_us={fa.bwd_encode_us():.2f} (host, one call)"
             ratio = "" if lib_ms is None else f" kernel/library={dev_ms / lib_ms:.3f}"
@@ -1300,6 +1387,145 @@ def phase_fused_unet(torch, dev, cfg, unet_mod, objs1) -> str:
             f"launches per fused forward {launches}")
 
 
+# ---------------------------------------------------------------------------
+# the SDXL-Refiner cascade
+# ---------------------------------------------------------------------------
+
+
+def refiner_launches(cfg, text_cfg, vae_cfg, px: int, b: int, keep: int) -> dict:
+    """Kernel launches (and unfused feed-forward calls) one `refine` of b
+    images at px pixels makes, from the refiner's plan: `keep` UNet forwards
+    at 2b rows (each GroupNorm of its res blocks, spatial transformers and
+    output head; three LayerNorms a transformer block; the packed attention
+    where a self-attention is long (`is_big`: 1024 tokens); the fused FF
+    where `ff_fits`), one OpenCLIP encode (two LayerNorms a layer and the
+    final one) and the VAE's encode and decode (two GroupNorms a res block,
+    the middle's attention norm, the output norm)."""
+    from instancediffusion_tpu_torch.kernels.geglu_ff import ff_fits
+    from instancediffusion_tpu_torch.models.sdxl_refiner import build_refiner_plan
+    from instancediffusion_tpu_torch.ops.attention import is_big
+
+    inp, mid, out = build_refiner_plan(cfg)
+    specs = [sp for blk in inp + [mid] + out for sp in blk]
+    attn = [sp for sp in specs if sp.kind == "attn"]
+    n_res = sum(sp.kind == "res" for sp in specs)
+    tokens = lambda sp: (px // 8 // sp.ds) ** 2
+    depth = cfg.transformer_depth
+    fits = [ff_fits(2 * b * tokens(sp), sp.out_ch, 4 * sp.out_ch) for sp in attn]
+    per_fwd = {"flash_attention_packed": depth * sum(is_big(tokens(sp), tokens(sp))
+                                                     for sp in attn),
+               "fused_group_norm": 2 * n_res + len(attn) + 1,
+               "fused_layer_norm": 3 * depth * len(attn),
+               "fused_ff_geglu": depth * sum(fits),
+               FF_ROUTE: depth * (len(attn) - sum(fits))}
+    want = {k: keep * v for k, v in per_fwd.items()}
+    levels, blocks = len(vae_cfg.ch_mult), vae_cfg.num_res_blocks
+    want["fused_group_norm"] += (2 * levels * blocks + 6) + (2 * levels * (blocks + 1) + 6)
+    want["fused_layer_norm"] += 2 * text_cfg.num_hidden_layers + 1
+    return want
+
+
+def phase_refiner(torch, dev, card: str) -> tuple[str, dict]:
+    """The SDXL-Refiner cascade at its published widths (2.3 B-parameter
+    UNet, OpenCLIP-bigG, the SD VAE at scale 0.13025) on densified random
+    weights: (a) one B=2 UNet forward at 512 px with the kernels against
+    plain_kernels(), every kernel of the path launched; the B=16 forward's
+    time; (b) `refine` of 8 images at 512 px, 20 DDIM steps at strength
+    0.35 (7 kept) with CFG as one B=16 forward, one warm-up then one timed
+    call with the launch counts set to 0 just before it, held to the
+    counts the plan gives; (c) the same for one image at 1024 px, the
+    refiner's native size. s/refine, its stages and peak memory."""
+    import numpy as np
+
+    from instancediffusion_tpu_torch import kernels
+    from instancediffusion_tpu_torch.models.sdxl_refiner import (
+        apply_refiner_unet, refiner_adm_vector,
+    )
+    from instancediffusion_tpu_torch.nn.core import plain_kernels
+    from instancediffusion_tpu_torch.pipeline_refiner import SDXLRefinerPipeline
+
+    t0 = time.perf_counter()
+    rp = SDXLRefinerPipeline.random_init(seed=5, device=dev)
+    for i, m in enumerate((rp.unet, rp.vae, rp.text)):
+        densify_(m, 20 + i)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_unet = sum(p.numel() for p in rp.unet.parameters())
+    n_text = sum(p.numel() for p in rp.text.parameters())
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    lat = 512 // 8
+    x = torch.randn((2, lat, lat, 4), generator=g, device=dev).to(bf)
+    t = torch.tensor([600, 600], device=dev)
+    ctx = torch.randn((2, 77, rp.cfg.context_dim), generator=g, device=dev).to(bf)
+    pooled = torch.randn((2, rp.text_cfg.projection_dim), generator=g, device=dev)
+    y = refiner_adm_vector(pooled, (512, 512), (0, 0), 6.0).to(bf)
+    with torch.inference_mode():
+        run = lambda: apply_refiner_unet(rp.unet, x, t, ctx, y)
+        kernels.reset_launch_counts()
+        eps_k = run()
+        fwd_launches = dict(kernels.LAUNCHES)
+        with plain_kernels():
+            eps_p = run()
+        torch.cuda.synchronize()
+        x16, t16 = x.repeat(8, 1, 1, 1), t.repeat(8)
+        ctx16, y16 = ctx.repeat(8, 1, 1), y.repeat(8, 1)
+        fwd16_ms = median_ms(lambda: apply_refiner_unet(rp.unet, x16, t16, ctx16, y16), reps=3)
+    if eps_k.shape != x.shape or not torch.isfinite(eps_k.float()).all():
+        raise RuntimeError(f"refiner: bad eps {tuple(eps_k.shape)}")
+    err = (eps_k.float() - eps_p.float()).abs().max().item()
+    scale = eps_p.float().abs().max().item()
+    rel = err / max(scale, 1e-12)
+    missing = [k for k in REFINER_PATH if fwd_launches.get(k, 0) <= 0]
+    if scale == 0.0 or rel > UNET_REL_TOL or missing:
+        raise RuntimeError(f"refiner: forward kernels vs plain rel err {rel:.3g} (max |eps| "
+                           f"{scale:.3g}, tol {UNET_REL_TOL}); not launched: {missing}")
+    del eps_k, eps_p
+
+    rng = np.random.default_rng(0)
+    keep = max(1, min(int(REFINER_STEPS * REFINER_STRENGTH), REFINER_STEPS))
+    runs = []
+    for b, px in ((N_IMAGES, 512), (1, 1024)):
+        imgs = rng.uniform(0.0, 1.0, (b, px, px, 3)).astype(np.float32)
+        kw = dict(strength=REFINER_STRENGTH, steps=REFINER_STEPS)
+        t0 = time.perf_counter()
+        rp.refine(imgs, META["prompt"], seed=0, **kw)
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = rp.refine(imgs, META["prompt"], seed=1, **kw)
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        calls = {k: launches.get(k, 0) for k in REFINER_PATH}
+        calls[FF_ROUTE] = kernels.ROUTES[FF_ROUTE]
+        want = refiner_launches(rp.cfg, rp.text_cfg, rp.vae_cfg, px, b, keep)
+        if calls != want:
+            raise RuntimeError(f"refiner {px}px B={b}: launches {calls}, the plan gives {want}")
+        if (out.shape != imgs.shape or not np.isfinite(out).all() or out.min() < 0
+                or out.max() > 1 or float(out.std()) == 0.0):
+            raise RuntimeError(f"refiner {px}px: output {out.shape}, range "
+                               f"[{out.min()}, {out.max()}]")
+        runs.append((b, px, warm_s, secs, torch.cuda.max_memory_allocated() / 2**30,
+                     dict(rp.last_timings), launches, calls))
+    del rp
+    torch.cuda.empty_cache()
+    parts = []
+    for b, px, warm_s, secs, peak, timings, _, calls in runs:
+        stages = ", ".join(f"{k} {v:.3f}s" for k, v in timings.items())
+        parts.append(f"refine B={b} at {px}px: warm-up {warm_s:.2f}s, {secs:.3f} s/refine "
+                     f"({secs / b:.4f} s/image; {stages}), peak {peak:.2f} GiB, launches and "
+                     f"unfused FF calls {calls} (as the plan gives)")
+    line = (f"refiner: SDXL-Refiner UNet {n_unet / 1e9:.3f} B params, OpenCLIP-bigG "
+            f"{n_text / 1e6:.0f} M, bf16, random_init + densify {init_s:.1f}s; B=2 forward at "
+            f"512px kernels vs plain max_abs_err={err:.4g} max|eps|={scale:.4g} rel={rel:.3g} "
+            f"tol={UNET_REL_TOL}; B=16 forward {fwd16_ms:.2f} ms (host clock, median of 3); "
+            f"{REFINER_STEPS} DDIM steps at strength {REFINER_STRENGTH} ({keep} kept), CFG 5 "
+            f"as one 2B forward: " + "; ".join(parts) + f" on {card}")
+    return line, runs[0][6]
+
+
 def _png_size(data: bytes) -> tuple[int, int]:
     """(width, height) of an 8-bit RGB PNG after checking its signature and
     that its image data inflate to height rows of 1 + 3 * width bytes."""
@@ -1485,20 +1711,30 @@ def phase_cli(torch, pipe, card: str) -> tuple[str, dict]:
     weights written as a flat SD-form checkpoint (with the stock first conv
     in pretrained/) and a kohya LoRA, then `inference.main` in-process on
     demo_fox_meadow.json --use_masks, 8 images, 50 steps, the default mask
-    preset and mis 0.36, without and with --lora. Checks that the loaded
+    preset and mis 0.36, without and with --lora; the LoRA run also with
+    --cascade_strength 0.35 (the SDXL refiner on its seeded random weights
+    refines the 8 images). Checks that the loaded
     weights equal the in-memory ones bit for bit, that the PNGs are written
     and lie within one uint8 level of `generate` on the in-memory weights
     (same meta and seed), that the merged weight is W + scale * up @ down at
-    the checked module and the LoRA images differ, and that K1-K5 launched
-    in the plain run. Returns the line and the plain run's launches."""
+    the checked module and the LoRA images differ, that K1-K5 launched
+    in the plain run, and that the cascade wrote 8 refined 512x512 PNGs
+    under the JAX CLI's names through the refiner's kernels (K2 and K5
+    launches beyond the plain run's: the refine's). Returns the line and
+    the plain run's launches."""
+    import re
+
     import numpy as np
 
     from instancediffusion_tpu_torch import inference, kernels
-    from instancediffusion_tpu_torch.config import Config, apply_test_preset
+    from instancediffusion_tpu_torch.config import (
+        Config, OpenCLIPTextConfig, RefinerUNetConfig, apply_test_preset,
+    )
     from instancediffusion_tpu_torch.io import checkpoint as ckpt_io
     from instancediffusion_tpu_torch.io.checkpoint import FIRST_CONV_FILE
     from instancediffusion_tpu_torch.io.png import read_png
     from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
+    from instancediffusion_tpu_torch.pipeline_refiner import REFINER_VAE, SDXLRefinerPipeline
 
     demo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demos",
                         "demo_fox_meadow.json")
@@ -1525,8 +1761,19 @@ def phase_cli(torch, pipe, card: str) -> tuple[str, dict]:
         args = ["--input_json", demo, "--use_masks", "--ckpt", ckpt, "--num_images",
                 str(N_IMAGES), "--steps", str(STEPS), "--output", os.path.join(tmp, "out")]
         runs = {}
+        refine_s = []
+        real_refine = SDXLRefinerPipeline.refine
+
+        def timed_refine(self, *a, **kw):
+            t = time.perf_counter()
+            out = real_refine(self, *a, **kw)
+            refine_s.append(time.perf_counter() - t)
+            return out
+
+        SDXLRefinerPipeline.refine = timed_refine
         for name, extra in (("plain", []), ("lora", ["--lora", lora_path, "--lora_scale",
-                                                     str(LORA_SCALE)])):
+                                                     str(LORA_SCALE), "--cascade_strength",
+                                                     str(REFINER_STRENGTH)])):
             with _CaptureLoads(InstanceDiffusionPipeline) as cap:
                 kernels.reset_launch_counts()
                 t0 = time.perf_counter()
@@ -1535,6 +1782,17 @@ def phase_cli(torch, pipe, card: str) -> tuple[str, dict]:
                 launches = dict(kernels.LAUNCHES)
             if len(cap.pipes) != 1:
                 raise RuntimeError(f"cli {name}: {len(cap.pipes)} checkpoint loads")
+            refined = [p for p in paths if "_xl_s" in os.path.basename(p)]
+            paths = [p for p in paths if p not in refined]
+            if name == "lora":
+                names = [os.path.basename(p) for p in refined]
+                pngs = [read_png(open(p, "rb").read()) for p in refined]
+                if (len(names) != N_IMAGES or not all(re.fullmatch(
+                        rf"\d+_xl_s{REFINER_STRENGTH}_n{REFINER_STEPS}\.png", n) for n in names)
+                        or any(im.shape != (512, 512, 3) or im.dtype != np.uint8 for im in pngs)):
+                    raise RuntimeError(f"cli cascade: refined files {names}")
+            elif refined:
+                raise RuntimeError(f"cli {name}: refined files without --cascade_strength")
             imgs = np.stack([read_png(open(p, "rb").read()) for p in paths])
             boxes = os.path.join(os.path.dirname(paths[0]),
                                  os.path.basename(paths[0]).replace(".png", "_boxes.png"))
@@ -1542,6 +1800,7 @@ def phase_cli(torch, pipe, card: str) -> tuple[str, dict]:
                 raise RuntimeError(f"cli {name}: no 512x512 boxes image at {boxes}")
             runs[name] = (cap.pipes[0], secs, launches, imgs)
         os.chdir(cwd)
+        SDXLRefinerPipeline.refine = real_refine
 
         # the loaded weights against the in-memory ones, bit for bit
         loaded = runs["plain"][0]
@@ -1570,8 +1829,20 @@ def phase_cli(torch, pipe, card: str) -> tuple[str, dict]:
                            alpha=0.75, mis=0.36, seed=0, sampler="plms")
         gen_s = time.perf_counter() - t0
     finally:
+        SDXLRefinerPipeline.refine = real_refine
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
+    # the cascade's own launches: the LoRA run's beyond the plain run's (the
+    # generate of both makes the same calls)
+    keep = max(1, min(int(REFINER_STEPS * REFINER_STRENGTH), REFINER_STEPS))
+    cascade = {k: runs["lora"][2].get(k, 0) - runs["plain"][2].get(k, 0)
+               for k in ("flash_attention_packed", "fused_ff_geglu")}
+    want = {k: v for k, v in refiner_launches(
+        RefinerUNetConfig(), OpenCLIPTextConfig(), REFINER_VAE, 512, N_IMAGES, keep).items()
+        if k in cascade}
+    if cascade != want or len(refine_s) != 1:
+        raise RuntimeError(f"cli cascade: refiner launches {cascade} (the plan gives {want}), "
+                           f"{len(refine_s)} refine calls")
     plain, with_lora = runs["plain"][3], runs["lora"][3]
     size_px = pipe.image_size
     if plain.shape != (N_IMAGES, size_px, size_px, 3) or int(plain.max()) == int(plain.min()):
@@ -1593,7 +1864,9 @@ def phase_cli(torch, pipe, card: str) -> tuple[str, dict]:
             f"--num_images {N_IMAGES} --steps {STEPS} mask preset mis 0.36: "
             f"{runs['plain'][1]:.2f}s plain ({runs['plain'][1] / N_IMAGES:.4f} s/image incl. "
             f"the load), {runs['lora'][1]:.2f}s with --lora (rank {LORA_RANK}, "
-            f"{len(lora) // 3} modules, scale {LORA_SCALE}); in-memory generate {gen_s:.2f}s "
+            f"{len(lora) // 3} modules, scale {LORA_SCALE}) and --cascade_strength "
+            f"{REFINER_STRENGTH} (refine of the {N_IMAGES} images {refine_s[0]:.3f}s, launches "
+            f"{cascade}, {N_IMAGES} refined 512x512 PNGs); in-memory generate {gen_s:.2f}s "
             f"({gen_s / N_IMAGES:.4f} s/image) on {card}; weights bit-equal after load; images "
             f"vs in-memory generate max |diff| {err} uint8 (tol 1); merged {LORA_CHECK[1]} "
             f"exact; LoRA images mean |diff| {lora_moved:.2f}; launches {launches}")
@@ -2225,6 +2498,10 @@ def main() -> int:
     line, launches_ddim, launches_i2i = phase_ddim_img2img(torch, pipe, card)
     log(line)
 
+    # the SDXL-Refiner cascade at its published widths
+    line, launches_refiner = phase_refiner(torch, dev, card)
+    log(line)
+
     # checkpoint files: the demo CLI from a written checkpoint (and a
     # LoRA), then training save and resume
     line, launches_cli = phase_cli(torch, pipe, card)
@@ -2260,7 +2537,8 @@ def main() -> int:
                    "cli": launches_cli.get(name, 0), "resume": launches_resume.get(name, 0),
                    "train": launches_train.get(name, 0),
                    "train_masked": launches_masked.get(name, 0),
-                   "trainer": launches_trainer.get(name, 0)}
+                   "trainer": launches_trainer.get(name, 0),
+                   "refiner": launches_refiner.get(name, 0)}
         entry = {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2268,9 +2546,11 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         }
-        entry.update({k: r[k] for k in ("exp_bound_ms", "main_label", "main_device_ms",
-                                        "main_library_ms", "main_bound_ms", "main_bound_by",
-                                        "main_exp_bound_ms") if k in r})
+        entry.update({k: r[k] for k in (
+            "exp_bound_ms", "main_label", "main_device_ms", "main_library_ms", "main_bound_ms",
+            "main_bound_by", "main_exp_bound_ms", "refiner_label", "refiner_device_ms",
+            "refiner_library_ms", "refiner_plain_ms", "refiner_bound_ms", "refiner_bound_by",
+            "refiner_exp_bound_ms") if k in r})
         if name in ONLY_KERNELS_PHASE:
             entry["checked"] = ONLY_KERNELS_PHASE[name]
         kernels_json.append(entry)

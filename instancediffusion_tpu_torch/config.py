@@ -3,8 +3,8 @@
 The sections the generate and training paths read, copied field for field
 from the JAX package so the port imports nothing of it: diffusion schedule,
 UNet with its UniFusion grounding tokenizer, VAE, CLIP text tower, sampler
-defaults, data and training knobs. The refiner section stays with the JAX
-package.
+defaults, data and training knobs, and the SDXL refiner's UNet and
+OpenCLIP-bigG text tower.
 `tests/test_torch_bridge.py` holds the copies' defaults equal to the JAX
 package's.
 """
@@ -79,6 +79,38 @@ class UNetConfig:
     max_objs: int = 30
     use_masked_att: bool = False
     grounding_tokenizer: UniFusionConfig = field(default_factory=UniFusionConfig)
+
+
+@dataclass
+class RefinerUNetConfig:
+    """SDXL-Refiner UNet (stabilityai/stable-diffusion-xl-refiner-1.0), from
+    the public sgm config `sd_xl_refiner.yaml` (UNetModel params); the model
+    is `models/sdxl_refiner.py`."""
+    image_size: int = 128              # 1024px latents
+    in_channels: int = 4
+    out_channels: int = 4
+    model_channels: int = 384
+    attention_resolutions: tuple[int, ...] = (4, 2)
+    num_res_blocks: int = 2
+    channel_mult: tuple[int, ...] = (1, 2, 4, 4)
+    num_head_channels: int = 64        # heads = ch // 64 per level
+    transformer_depth: int = 4
+    context_dim: int = 1280            # OpenCLIP bigG penultimate states
+    adm_in_channels: int = 2560        # 1280 pooled text + 5 x 256 fourier
+    efficient_attention: bool = True
+
+
+@dataclass
+class OpenCLIPTextConfig:
+    """OpenCLIP ViT-bigG/14 text tower (the SDXL-Refiner conditioner)."""
+    vocab_size: int = 49408
+    max_length: int = 77
+    hidden_size: int = 1280
+    intermediate_size: int = 5120
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 20
+    activation: str = "gelu"           # CLIP-L uses quick_gelu
+    projection_dim: int = 1280
 
 
 @dataclass

@@ -5,7 +5,8 @@
 // (_ff_kernel); the kernel's header says what bounds it on this card (the
 // registers a block with a producer warpgroup gets, the shared-memory bytes
 // per product, the gate on the fp32 lanes, the shared memory left for the w1
-// ring at C = 640) and what its design does. The
+// ring at C = 640, the one-tile w2 slots at C = 768) and what its design
+// does. The
 // Python wrapper (kernels/geglu_ff.py::ff_plan) derives the three maps; this
 // file encodes them (tma_host.cuh) and picks the instantiation by C.
 #include "geglu_ff_sm90.cuh"
@@ -20,6 +21,8 @@ template <>
 cudaError_t launch<320>(const Launch& a);
 template <>
 cudaError_t launch<640>(const Launch& a);
+template <>
+cudaError_t launch<768>(const Launch& a);
 }  // namespace idt_ff
 
 namespace {
@@ -56,8 +59,9 @@ int launch_checked(const idt_ff::Launch& a, const long long* maps) {
 // maps: 3 x 6 int64 plan values for x (M, C; box of a block's 64 rows), w1
 // (2I, C) and w2 (C, I; boxes of one ring slot's rows), all bf16
 // and contiguous. out: (M, C) bf16. b1 (2I,), b2 (C,): both bf16 (bias_fp32
-// = 0) or both fp32 (1), read as stored. Requires C in {64, 128, 320, 640}
-// and I a multiple of the kernel's turn width (64, or 128 at C = 640); other
+// = 0) or both fp32 (1), read as stored. Requires C in {64, 128, 320, 640,
+// 768} and I a multiple of the kernel's turn width (64; 128 at C = 640, 192
+// at C = 768); other
 // shapes return cudaErrorInvalidValue.
 IDT_EXPORT int idt_geglu_ff(const long long* maps, const void* b1, const void* b2, void* out,
                             int M, int C, int I, int bias_fp32, void* stream) {
@@ -80,6 +84,7 @@ IDT_EXPORT int idt_geglu_ff(const long long* maps, const void* b1, const void* b
         case 128: return launch_checked<128>(a, maps);
         case 320: return launch_checked<320>(a, maps);
         case 640: return launch_checked<640>(a, maps);
+        case 768: return launch_checked<768>(a, maps);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

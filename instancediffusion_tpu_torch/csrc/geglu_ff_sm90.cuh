@@ -1,7 +1,8 @@
 // The fused GEGLU feed-forward kernel for Hopper: out = (a * gelu(g)) @ w2^T
 // + b2 with [a | g] = x @ w1^T + b1 and erf GELU, in one launch, with TMA
 // loads from a producer warpgroup, wgmma products and two consumer
-// warpgroups a block; at C = 640 two blocks of a cluster share one row tile.
+// warpgroups a block; at C = 640 two blocks of a cluster share one row tile,
+// at C = 768 three.
 //
 // Replaces instancediffusion_tpu/kernels/geglu_ff.py::fused_ff_geglu
 // (_ff_kernel). The TPU kernel used tanh-GELU only because Mosaic lowers no
@@ -22,9 +23,10 @@
 //     (32 registers) must fit 168: at most 320 output columns a block. At
 //     C = 640 a cluster of two blocks takes the same 64 rows, each block 320
 //     output columns, and each computes half of every gated tile and writes
-//     it into both blocks' shared memory, so no product is done twice.
-//     C = 1280 is not served: x alone (64 x 1280) is 160 KB of each block's
-//     shared memory; `ff_fits` sends it to the unfused route.
+//     it into every block's shared memory, so no product is done twice.
+//     At C = 768 (the SDXL refiner's ds2) a cluster of three takes 256
+//     columns a block. C = 1280 is not served: x alone (64 x 1280) is 160 KB
+//     of each block's shared memory; `ff_fits` sends it to the unfused route.
 //   - Shared-memory bytes per product. A wgmma with both operands in shared
 //     memory reads 64 x 16 of A and N x 16 of B for 64 x N x 16 products; at
 //     N = 64 that is the SM's whole shared-memory rate, so the first
@@ -36,13 +38,18 @@
 //     second product of the turn before overlaps it.
 //   - Shared memory at C = 640: x (80 KB), two gated tiles (32 KB) and one
 //     turn of w2 (80 KB) leave the w1 ring 4 slots, two a warpgroup, so the
-//     first product there waits for its loads.
+//     first product there waits for its loads. At C = 768, x (96 KB) and two
+//     gated tiles (48 KB) leave no room for a turn of w2 a warpgroup (48 KB
+//     each): there a w2 slot holds one 64-column tile, one slot a
+//     warpgroup, and the second product waits for each tile's group before
+//     that slot is refilled (its loads are not hidden), which leaves the w1
+//     ring 6 slots.
 //   - A cluster whose blocks took different rows and multicast each weight
 //     tile was built and measured: it divides the L2 reads, which are not the
 //     limit, and makes every slot wait for the slowest block. Slower; removed.
 // The design: no fp32 partial and no (M, 2I) intermediate leaves the SM. A
-// cluster of CL blocks (1, or 2 at C = 640) owns 64 rows; x (64 x C) is loaded
-// once into every block and stays in shared memory. The inner dimension is a
+// cluster of CL blocks (1; 2 at C = 640, 3 at C = 768) owns 64 rows; x (64 x
+// C) is loaded once into every block and stays in shared memory. The inner dimension is a
 // loop inside the block, P = 64 CL columns per turn, and the 2 CL consumer
 // warpgroups of the cluster split the columns of both products:
 //   first product: warpgroup q multiplies x by the rows of w1 that give a
@@ -57,18 +64,18 @@
 //     of a cluster on an mbarrier in every block on which each warp arrives
 //     (release, cluster scope) once its stores are out;
 //   second product: each multiplies the whole gated tile by its own C / (2 CL)
-//     rows of w2 (m64n160k16 at C = 320 and 640) into its fp32 output tile,
-//     which stays in registers for the whole loop. A turn issues the next
-//     turn's first product and then this turn's second back to back and
-//     waits only for the first, so the next gate runs while the second
-//     product is still on the tensor cores.
+//     rows of w2 (m64n160k16 at C = 320 and 640, m64n128k16 at 768) into its
+//     fp32 output tile, which stays in registers for the whole loop. A turn
+//     issues the next turn's first product and then this turn's second back
+//     to back and waits only for the first, so the next gate runs while the
+//     second product is still on the tensor cores.
 // Weights stream through two rings of swizzled slots, w1 tiles (the 32 a
 // rows and the 32 g rows x 64 columns, 8 KB) and w2 slots (a warpgroup's
-// C / (2 CL) rows x the turn's columns, one tile per 64), each filled by one
-// thread of the producer warpgroup with TMA in the order the consumers use
-// them and completed on mbarriers; the warpgroups take alternate slots. A
-// slot is freed by one arrival per consumer warp once the wgmma group that
-// read it has completed.
+// C / (2 CL) rows x the turn's columns, one tile per 64; one tile at C =
+// 768), each filled by one thread of the producer warpgroup with TMA in the
+// order the consumers use them and completed on mbarriers; the warpgroups
+// take alternate slots. A slot is freed by one arrival per consumer warp once
+// the wgmma group that read it has completed.
 #pragma once
 
 #include <type_traits>
@@ -97,7 +104,7 @@ struct Params {
 template <int C>
 struct Layout {
     static constexpr int CL = (C + kMaxBlockCols - 1) / kMaxBlockCols;  // blocks a cluster
-    static_assert(C % 64 == 0 && CL <= 2, "C in 64-column blocks, at most two blocks a cluster");
+    static_assert(C % 64 == 0 && CL <= 3, "C in 64-column blocks, at most three blocks a cluster");
     static constexpr int KS = C / 64;             // 64-column slices of x and w1
     static constexpr int NC = C / (2 * CL);       // output columns per warpgroup and wgmma
     static_assert(NC % 8 == 0, "a w2 tile is whole 8-row swizzle blocks");
@@ -105,16 +112,21 @@ struct Layout {
     static constexpr int KP = P / 64;             // 64-column chunks of the gated tile
     static constexpr int slot1 = 2 * kGated * 128;  // w1 slot: the a rows, then the g rows
     static constexpr int tile2 = NC * 128;          // w2 tile: a warpgroup's rows x 64 columns
-    static constexpr int slot2 = KP * tile2;        // w2 slot: a warpgroup's tiles of one turn
+    // w2 tiles a slot holds: a warpgroup's tiles of one turn, or one tile
+    // where a turn's would not fit (three chunks, C = 768)
+    static constexpr int W2C = KP <= 2 ? KP : 1;
+    static constexpr int KP2 = KP / W2C;          // w2 slots a warpgroup takes per turn
+    static constexpr int slot2 = W2C * tile2;
     static constexpr int n1 = 2 * KS;             // w1 slots per turn (both warpgroups)
-    static constexpr int S2 = 4 / KP;             // w2 slots: two turns a warpgroup, or one
+    // w2 slots: two turns a warpgroup, or one turn, or one tile
+    static constexpr int S2 = KP <= 2 ? 4 / KP : 2;
     static constexpr int x_bytes = KS * kChunk;
     static constexpr int ag_off = x_bytes;        // gated tile, double-buffered
     static constexpr int ring2 = ag_off + 2 * KP * kChunk;
     static constexpr int ring1 = ring2 + S2 * slot2;
     static constexpr int fit = (kSmemCap - 1024 - 256 - ring1) / slot1;
     static constexpr int S1 = (fit < 16 ? fit : 16) & ~1;  // even: a warpgroup takes every other
-    static_assert(S1 >= 4, "w1 ring too short");
+    static_assert(S1 >= 4, "w1 ring too short: two slots a warpgroup");
     static constexpr int bars = ring1 + S1 * slot1;
     static constexpr int n_bars = 2 * S1 + 2 * S2 + 1 + 2;  // rings, x, the two gated tiles
     // + 1 KB to align the base: the 128-byte swizzle repeats every 1024 bytes
@@ -226,18 +238,20 @@ __global__ void __launch_bounds__(kThreads, 1)
             int s2 = 0;
             uint32_t ph2 = 1;
             for (int tn = 0; tn < turns; ++tn)
-                for (int w = 0; w < 2; ++w) {
-                    mbar_wait_at(empty2 + s2 * 8, ph2);
-                    const uint32_t bar = full2 + s2 * 8;
-                    mbar_expect_tx_at(bar, L::slot2);
-                    for (int kc = 0; kc < KP; ++kc)
-                        tma_load_2d_at(sbase + L::ring2 + s2 * L::slot2 + kc * L::tile2, &tw2, bar,
-                                       tn * L::P + kc * 64, (rank * 2 + w) * NC);
-                    if (++s2 == S2) {
-                        s2 = 0;
-                        ph2 ^= 1;
+                for (int j = 0; j < L::KP2; ++j)
+                    for (int w = 0; w < 2; ++w) {
+                        mbar_wait_at(empty2 + s2 * 8, ph2);
+                        const uint32_t bar = full2 + s2 * 8;
+                        mbar_expect_tx_at(bar, L::slot2);
+                        for (int c = 0; c < L::W2C; ++c)
+                            tma_load_2d_at(sbase + L::ring2 + s2 * L::slot2 + c * L::tile2, &tw2,
+                                           bar, tn * L::P + (j * L::W2C + c) * 64,
+                                           (rank * 2 + w) * NC);
+                        if (++s2 == S2) {
+                            s2 = 0;
+                            ph2 ^= 1;
+                        }
                     }
-                }
         }
         __syncwarp();
     } else {
@@ -300,23 +314,31 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
         };
         // out[:, own columns] += gated tile (shared) @ w2[own rows, turn]^T,
-        // one wgmma group over the tile's chunks
+        // one wgmma group per w2 slot over its chunks of the tile. Where a
+        // turn takes several slots (C = 768, one slot a warpgroup), the group
+        // before must have completed, and its slot been freed, before the
+        // next slot can be waited for.
         auto gemm2 = [&](int tn, bool have_pending) {
-            mbar_wait_at(full2 + s2 * 8, ph2);
-            const uint64_t da = dag0 + static_cast<uint64_t>((tn & 1) * KP * (kChunk >> 4));
-            const uint64_t db = dr2 + static_cast<uint64_t>(s2 * (L::slot2 >> 4));
-            wgmma_fence();
 #pragma unroll
-            for (int kc = 0; kc < KP; ++kc)
+            for (int j = 0; j < L::KP2; ++j) {
+                if (j > 0) drain();
+                mbar_wait_at(full2 + s2 * 8, ph2);
+                const uint64_t da = dag0 + static_cast<uint64_t>(
+                                               ((tn & 1) * KP + j * L::W2C) * (kChunk >> 4));
+                const uint64_t db = dr2 + static_cast<uint64_t>(s2 * (L::slot2 >> 4));
+                wgmma_fence();
 #pragma unroll
-                for (int kk = 0; kk < 4; ++kk)
-                    wgmma_ss<NC>(acc, da + kc * (kChunk >> 4) + 2 * kk,
-                                 db + kc * (L::tile2 >> 4) + 2 * kk, 1);
-            committed(empty2 + s2 * 8, have_pending);
-            s2 += 2;
-            if (s2 >= S2) {
-                s2 -= S2;
-                ph2 ^= 1;
+                for (int kc = 0; kc < L::W2C; ++kc)
+#pragma unroll
+                    for (int kk = 0; kk < 4; ++kk)
+                        wgmma_ss<NC>(acc, da + kc * (kChunk >> 4) + 2 * kk,
+                                     db + kc * (L::tile2 >> 4) + 2 * kk, 1);
+                committed(empty2 + s2 * 8, have_pending && j == 0);
+                s2 += 2;
+                if (s2 >= S2) {
+                    s2 -= S2;
+                    ph2 ^= 1;
+                }
             }
         };
         // bias, a * gelu(g) in fp32 (exact erf), rounded once to bf16, into
@@ -340,8 +362,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                 const uint32_t lo = pack_bf16(y0, y1), hi = pack_bf16(y2, y3);
                 *reinterpret_cast<uint32_t*>(smem + off) = lo;
                 *reinterpret_cast<uint32_t*>(smem + off + 1024) = hi;
-                if constexpr (CL > 1) {
-                    const uint32_t there = cluster_map(sbase + off, rank ^ 1);
+#pragma unroll
+                for (int r = 1; r < CL; ++r) {
+                    const uint32_t there = cluster_map(sbase + off, (rank + r) % CL);
                     st_cluster_u32(there, lo);
                     st_cluster_u32(there + 1024, hi);
                 }

@@ -19,7 +19,11 @@
 // order (deterministic: no atomics in any sum; fp64 E[x^2] - E[x]^2 does not
 // cancel at a million elements per group) and normalises its rows walking
 // them in reverse, so the rows it read last come from L2. It applies the
-// affine and the optional SiLU in fp32 and rounds once.
+// affine and the optional SiLU in fp32 and rounds once. Rows up to C = 2560
+// (320 threads) run 4 blocks an SM; wider ones, up to the SDXL refiner's
+// C = 3072 (its decoder's 1536 + 1536 skip joins), keep one thread per
+// vector, in blocks of up to 384 threads at 3 an SM, so the registers a
+// thread may take (about 56) stay above the narrow form's 51.
 //
 // A one-read design that keeps a sample in a thread-block cluster's shared
 // memory (a bulk copy per CTA, the groups' sums all-reduced through
@@ -48,6 +52,8 @@ constexpr int kThreads = 256;
 constexpr int kMaxGroups = 64;
 constexpr int kGnMaxThreads = 320;  // C / 8 vectors per row, up to C = 2560
 constexpr int kCoopBlocksPerSM = 4;
+constexpr int kGnWideThreads = 384;  // the wide form: up to C = 3072
+constexpr int kCoopWideBlocksPerSM = 3;
 
 __device__ __forceinline__ void unpack8(const uint4& raw, float (&f)[8]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -145,9 +151,10 @@ __device__ __forceinline__ void gn_affine(const GnThread& th, const AT* scale, c
 }
 
 // Grid (splits, B), launched cooperatively; partial: fp64 (B, splits, 2,
-// G); dynamic shared memory R x C fp32.
-template <typename AT>
-__global__ void __launch_bounds__(kGnMaxThreads, kCoopBlocksPerSM) gn_kernel(
+// G); dynamic shared memory R x C fp32. MAX_THREADS / BLOCKS_PER_SM: the
+// narrow (320, 4) or the wide (384, 3) form.
+template <typename AT, int MAX_THREADS, int BLOCKS_PER_SM>
+__global__ void __launch_bounds__(MAX_THREADS, BLOCKS_PER_SM) gn_kernel(
     const __nv_bfloat16* __restrict__ x, const AT* __restrict__ scale,
     const AT* __restrict__ bias, __nv_bfloat16* __restrict__ y, double* __restrict__ partial,
     int N, int C, int G, int rows_per, float eps, int silu) {
@@ -215,7 +222,8 @@ cudaError_t gn_launch(const void* x, const void* scale, const void* bias, void* 
     const auto* bp = static_cast<const AT*>(bias);
     auto* yp = static_cast<__nv_bfloat16*>(y);
     auto* pp = static_cast<double*>(partial);
-    auto kern = gn_kernel<AT>;
+    auto kern = threads > kGnMaxThreads ? gn_kernel<AT, kGnWideThreads, kCoopWideBlocksPerSM>
+                                        : gn_kernel<AT, kGnMaxThreads, kCoopBlocksPerSM>;
     cudaError_t err = idt_allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
     void* args[] = {&xp, &sp, &bp, &yp, &pp, &N, &C, &G, &rows_per, &eps, &silu};
@@ -385,13 +393,14 @@ cudaError_t ln_launch(const void* x, const void* scale, const void* bias, void* 
 // x, y: (B, N, C) contiguous bf16; scale, bias: (C,) bf16 (affine_fp32 = 0)
 // or fp32 (1); partial: fp64 scratch of B * splits * 2 * G. Each sample's
 // rows are cut into `splits` chunks of rows_per; threads = (C / 8) * R, smem
-// = R x C fp32. Requires C % 8 == 0, C % G == 0, G <= 64, threads <= 320,
-// and B * splits blocks resident at once (the launch fails otherwise).
+// = R x C fp32. Requires C % 8 == 0, C % G == 0, G <= 64, threads <= 384
+// (above 320 the wide form, 3 blocks an SM), and B * splits blocks resident
+// at once (the launch fails otherwise).
 IDT_EXPORT int idt_group_norm(const void* x, const void* scale, const void* bias, void* y,
                               void* partial, int B, int N, int C, int G, int splits, int rows_per,
                               int threads, int smem, float eps, int silu, int affine_fp32,
                               void* stream) {
-    if (C % 8 || C % G || G > kMaxGroups || threads > kGnMaxThreads || threads % (C / 8))
+    if (C % 8 || C % G || G > kMaxGroups || threads > kGnWideThreads || threads % (C / 8))
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     return static_cast<int>(

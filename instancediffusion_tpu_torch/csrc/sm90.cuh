@@ -377,6 +377,12 @@ __device__ __forceinline__ void wgmma_ss<160>(float (&d)[80], uint64_t da, uint6
         : "l"(da), "l"(db), "r"(accumulate));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+    wgmma_ss_n128(d, da, db, accumulate);
+}
+
 // D (64 x N, fp32) += A (64 x 16 bf16, registers: the m16n8k16 A fragment of
 // each warp's 16 rows) * B (16 x N, shared, MN-major).
 template <int N>

@@ -3,12 +3,15 @@
 
 The same flags (--input_json/--num_images/--guidance_scale/--negative_prompt/
 --ckpt/--seed/--alpha/--mis/--steps/--test_config/--use_masks/--output/
---sampler/--lora/--lora_scale/--img2img/--strength/--cascade_strength), plus
---device (default cuda), and the same demo-JSON schema (caption,
-width/height, annos[] with bbox/mask/point/scribble/caption). Writes the
-images and a box-outline image as PNGs into
+--sampler/--lora/--lora_scale/--img2img/--strength/--cascade_strength/
+--refiner_ckpt), plus --device (default cuda), and the same demo-JSON schema
+(caption, width/height, annos[] with bbox/mask/point/scribble/caption).
+Writes the images and a box-outline image as PNGs into
 OUTPUT/gc<scale>-seed<seed>-alpha<alpha>/, numbered after the files already
-there.
+there. --cascade_strength > 0 also refines the images through the SDXL
+refiner (`pipeline_refiner.py`: 20 DDIM steps at that strength, seeded
+random weights unless --refiner_ckpt names sd_xl_refiner_1.0.safetensors)
+and writes them as <n>_xl_s<strength>_n20.png.
 
 Reference quirk reproduced by default: the demo path zeroes the decoded
 binary masks before sampling scribbles/polygons/segs, so demos exercise
@@ -17,8 +20,7 @@ JSON's RLE masks.
 
 Differences from the JAX CLI: the box image has the outlines only (no
 phrase or caption text); --img2img reads PNGs and JPEGs already at the
-model's resolution (others raise); --cascade_strength > 0 raises (the
-SDXL refiner is not ported).
+model's resolution (others raise).
 
 Usage:
   python -m instancediffusion_tpu_torch.inference --input_json demos/demo_fox_meadow.json \\
@@ -167,7 +169,10 @@ def main(argv=None) -> list[str]:
                    help="fraction of steps using Multi-Instance Sampler")
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--cascade_strength", type=float, default=0.0,
-                   help="SDXL-Refiner img2img pass (0 = off; not ported: > 0 raises)")
+                   help="SDXL-Refiner img2img pass (0 = off)")
+    p.add_argument("--refiner_ckpt", type=str, default=None,
+                   help="sd_xl_refiner_1.0.safetensors path (seeded random refiner "
+                        "weights without it)")
     p.add_argument("--test_config", type=str, default="mask",
                    choices=["box", "point", "scribble", "mask", "all"],
                    help="modality preset (the reference's test_*.yaml)")
@@ -191,9 +196,6 @@ def main(argv=None) -> list[str]:
                         "(1.0 = full re-generation)")
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
-    if args.cascade_strength > 0:
-        raise NotImplementedError("--cascade_strength: the SDXL refiner is not ported to "
-                                  "PyTorch yet (its own slice of the port)")
 
     from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline, default_dtype
 
@@ -251,11 +253,33 @@ def main(argv=None) -> list[str]:
 
     _write_png(os.path.join(folder, f"{start}_boxes.png"), draw_boxes_image(meta["locations"]))
     paths = []
+    if args.cascade_strength > 0:
+        refined = _sdxl_refine(images, meta["prompt"], args.cascade_strength,
+                               ckpt=args.refiner_ckpt, device=args.device)
+        for i in range(refined.shape[0]):
+            paths.append(os.path.join(folder, f"{start + i}_xl_s{args.cascade_strength}_n20.png"))
+            _write_png(paths[-1], refined[i])
     for i in range(images.shape[0]):
         paths.append(os.path.join(folder, f"{start + i}.png"))
         _write_png(paths[-1], images[i])
     print(f"saved {images.shape[0]} images to {folder}")
     return paths
+
+
+def _sdxl_refine(images, prompt, strength, steps=20, ckpt=None, device="cuda"):
+    """The SDXL-Refiner cascade (`pipeline_refiner.py`) over uint8 images:
+    refined (B, H, W, 3) uint8, truncated as the JAX CLI converts them.
+    ckpt: sd_xl_refiner_1.0.safetensors; without it the refiner runs on
+    seeded random weights."""
+    from instancediffusion_tpu_torch.pipeline import default_dtype
+    from instancediffusion_tpu_torch.pipeline_refiner import SDXLRefinerPipeline
+
+    kw = dict(device=device, dtype=default_dtype(device))
+    pipe = (SDXLRefinerPipeline.from_checkpoint(ckpt, **kw) if ckpt
+            else SDXLRefinerPipeline.random_init(**kw))
+    out = pipe.refine(np.asarray(images, np.float32) / 255.0, prompt, strength=strength,
+                      steps=steps)
+    return (out * 255).astype(np.uint8)
 
 
 if __name__ == "__main__":

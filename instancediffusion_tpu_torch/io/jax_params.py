@@ -1,7 +1,8 @@
 """Fill the port's parameters from the JAX package's parameter trees.
 
-The JAX `PipelineParams` trees (`unet`, `vae`, `clip`) are nested dicts and
-lists whose leaves are arrays (numpy, or anything `np.asarray` reads). The
+The JAX `PipelineParams` trees (`unet`, `vae`, `clip`) and `RefinerParams`
+trees (`unet`: the SDXL refiner's, `vae`, `text`: OpenCLIP-bigG) are nested
+dicts and lists whose leaves are arrays (numpy, or anything `np.asarray` reads). The
 port's modules mirror those trees key for key, so loading is a walk of both
 at once:
   * Linear `w` (in, out) -> `weight` (out, in); `b` -> `bias`
@@ -75,10 +76,11 @@ def _load_module(module: torch.nn.Module, tree) -> None:
                        f"{' ...' if len(missing) > 10 else ''}")
 
 
-def load_jax_params(pipe_or_module, unet=None, vae=None, clip=None) -> None:
-    """Copy JAX parameter trees into a pipeline's `unet`/`vae`/`clip`
-    modules, or (with exactly one tree given) into one module."""
-    given = {k: t for k, t in (("unet", unet), ("vae", vae), ("clip", clip))
+def load_jax_params(pipe_or_module, unet=None, vae=None, clip=None, text=None) -> None:
+    """Copy JAX parameter trees into a pipeline's `unet`/`vae`/`clip` (the
+    refiner pipeline's `unet`/`vae`/`text`) modules, or (with exactly one
+    tree given) into one module."""
+    given = {k: t for k, t in (("unet", unet), ("vae", vae), ("clip", clip), ("text", text))
              if t is not None}
     if isinstance(pipe_or_module, torch.nn.Module):
         if len(given) != 1:

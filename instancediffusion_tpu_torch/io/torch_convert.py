@@ -1,12 +1,17 @@
 """Convert reference (PyTorch) state dicts into the JAX-layout numpy trees
 that `io/jax_params.load_jax_params` reads (counterpart of
-`instancediffusion_tpu/io/torch_convert.py`; the SD1.5 parts: UNet with
-UniFusion and ConvNeXt-T, VAE, CLIP text).
+`instancediffusion_tpu/io/torch_convert.py`: the SD1.5 parts, UNet with
+UniFusion and ConvNeXt-T, VAE, CLIP text; and the SDXL refiner's UNet and
+OpenCLIP-bigG text tower).
 
 Handles the official-checkpoint layout split by key prefix:
     model.diffusion_model.* -> UNet        (convert_unet)
     first_stage_model.*     -> VAE         (convert_vae)
     cond_stage_model.*      -> CLIP text   (convert_clip_text)
+and the refiner's sgm layout (`split_refiner_ckpt`):
+    model.diffusion_model.*           -> refiner UNet (convert_refiner_unet)
+    conditioner.embedders.0.model.*   -> OpenCLIP text (convert_openclip_text)
+    first_stage_model.*               -> VAE          (convert_vae)
 
 Layout transforms (reference -> tree):
     Linear  (out,in)   -> (in,out)           transpose
@@ -29,6 +34,7 @@ import numpy as np
 
 from instancediffusion_tpu_torch.config import UNetConfig, UniFusionConfig
 from instancediffusion_tpu_torch.models.convnext import TINY_DEPTHS
+from instancediffusion_tpu_torch.models.sdxl_refiner import build_refiner_plan
 from instancediffusion_tpu_torch.models.unet import build_plan
 
 Params = dict[str, Any]
@@ -448,3 +454,138 @@ def convert_unet(
             k: np.copy(v) for k, v in params["input_blocks"][0][0]["conv"].items()
         }
     return params
+
+
+# -- SDXL-Refiner -------------------------------------------------------------
+
+
+def _proj(sd, p):
+    """A spatial transformer's proj_in / proj_out: a 1x1 conv (OIHW) or,
+    in files written with `use_linear_in_transformer` (the public
+    sd_xl_refiner.yaml), a (C_out, C_in) Linear over the same channels. Both
+    are the same per-pixel map, so a 2-D weight is read as the 1x1 conv
+    (the JAX package's converter reads the conv form only)."""
+    w = sd[p + ".weight"]
+    if w.ndim == 2:
+        w = w[:, :, None, None]
+    out = {"w": np.ascontiguousarray(w.transpose(2, 3, 1, 0))}
+    if p + ".bias" in sd:
+        out["b"] = sd[p + ".bias"]
+    return out
+
+
+def _tblock_plain(sd, p):
+    """Transformer block without a fuser (plain SDXL naming)."""
+    return {
+        "attn1": _mha(sd, p + ".attn1"),
+        "attn2": _mha(sd, p + ".attn2"),
+        "ff": _ff_geglu(sd, p + ".ff"),
+        "norm1": _norm(sd, p + ".norm1"),
+        "norm2": _norm(sd, p + ".norm2"),
+        "norm3": _norm(sd, p + ".norm3"),
+    }
+
+
+def _spatial_plain(sd, p, depth):
+    return {
+        "norm": _norm(sd, p + ".norm"),
+        "proj_in": _proj(sd, p + ".proj_in"),
+        "blocks": [
+            _tblock_plain(sd, f"{p}.transformer_blocks.{d}")
+            for d in range(depth)
+        ],
+        "proj_out": _proj(sd, p + ".proj_out"),
+    }
+
+
+def convert_refiner_unet(sd: dict[str, np.ndarray], cfg) -> Params:
+    """sd: sgm `sd_xl_refiner_1.0.safetensors` UNet state_dict with the
+    `model.diffusion_model.` prefix stripped (the original LDM naming: the
+    SD1.5 openaimodel scheme plus `label_emb` for the ADM vector)."""
+    input_plan, middle_plan, output_plan = build_refiner_plan(cfg)
+
+    def layer(spec, p):
+        if spec.kind == "conv_in":
+            return {"conv": _conv(sd, p)}
+        if spec.kind == "res":
+            return _res(sd, p)
+        if spec.kind == "attn":
+            return _spatial_plain(sd, p, cfg.transformer_depth)
+        if spec.kind == "down":
+            return {"conv": _conv(sd, p + ".op")}
+        if spec.kind == "up":
+            return {"conv": _conv(sd, p + ".conv")}
+        raise ValueError(spec.kind)
+
+    return {
+        "time_embed": {
+            "l1": _lin(sd, "time_embed.0"),
+            "l2": _lin(sd, "time_embed.2"),
+        },
+        # openaimodel num_classes="sequential": label_emb.0 is itself a
+        # Sequential(linear, SiLU, linear)
+        "label_emb": {
+            "l1": _lin(sd, "label_emb.0.0"),
+            "l2": _lin(sd, "label_emb.0.2"),
+        },
+        "input_blocks": [
+            [layer(s, f"input_blocks.{i}.{j}") for j, s in enumerate(blk)]
+            for i, blk in enumerate(input_plan)
+        ],
+        "middle_block": [
+            layer(s, f"middle_block.{j}") for j, s in enumerate(middle_plan)
+        ],
+        "output_blocks": [
+            [layer(s, f"output_blocks.{i}.{j}") for j, s in enumerate(blk)]
+            for i, blk in enumerate(output_plan)
+        ],
+        "out": {"norm": _norm(sd, "out.0"), "conv": _conv(sd, "out.2")},
+    }
+
+
+def convert_openclip_text(sd: dict[str, np.ndarray], cfg) -> Params:
+    """OpenCLIP text tower (`conditioner.embedders.0.model.` stripped) ->
+    the `models/clip_text` tree. open_clip fuses q/k/v into in_proj_*; the
+    text_projection parameter is stored (width, proj), already in x @ W
+    orientation, so it copies without the torch (out, in) transpose."""
+    d = cfg.hidden_size
+
+    def resblock(i):
+        p = f"transformer.resblocks.{i}"
+        w = sd[p + ".attn.in_proj_weight"]   # (3d, d) torch layout
+        b = sd[p + ".attn.in_proj_bias"]
+        return {
+            "ln1": {"scale": sd[p + ".ln_1.weight"], "bias": sd[p + ".ln_1.bias"]},
+            "q": {"w": np.ascontiguousarray(w[:d].T), "b": b[:d]},
+            "k": {"w": np.ascontiguousarray(w[d:2 * d].T), "b": b[d:2 * d]},
+            "v": {"w": np.ascontiguousarray(w[2 * d:].T), "b": b[2 * d:]},
+            "out": _lin(sd, p + ".attn.out_proj"),
+            "ln2": {"scale": sd[p + ".ln_2.weight"], "bias": sd[p + ".ln_2.bias"]},
+            "fc1": _lin(sd, p + ".mlp.c_fc"),
+            "fc2": _lin(sd, p + ".mlp.c_proj"),
+        }
+
+    return {
+        "token_embedding": sd["token_embedding.weight"],
+        "position_embedding": sd["positional_embedding"],
+        "layers": [resblock(i) for i in range(cfg.num_hidden_layers)],
+        "final_ln": {
+            "scale": sd["ln_final.weight"], "bias": sd["ln_final.bias"]
+        },
+        "text_projection": {"w": sd["text_projection"]},
+    }
+
+
+def split_refiner_ckpt(sd: dict[str, np.ndarray]) -> dict[str, dict[str, np.ndarray]]:
+    """Full sd_xl_refiner checkpoint -> {unet, text, vae} sub-dicts with
+    prefixes stripped (sgm layout: model.diffusion_model / conditioner.
+    embedders.0.model / first_stage_model)."""
+    out: dict[str, dict[str, np.ndarray]] = {"unet": {}, "text": {}, "vae": {}}
+    for k, v in sd.items():
+        if k.startswith("model.diffusion_model."):
+            out["unet"][k[len("model.diffusion_model."):]] = v
+        elif k.startswith("conditioner.embedders.0.model."):
+            out["text"][k[len("conditioner.embedders.0.model."):]] = v
+        elif k.startswith("first_stage_model."):
+            out["vae"][k[len("first_stage_model."):]] = v
+    return out

@@ -18,8 +18,11 @@ product's wgmma (N=64, both operands in shared memory) runs at the
 shared-memory rate, not the tensor cores', and the gate's time (erf, bias,
 packing) adds to the products'. At C=640 shared memory is the limit as well:
 x, the gated tiles and one turn of w2 leave the w1 ring four slots, so the
-first product waits for its loads. The kernel's header gives the reckoning
-and `PERF.md` the measurements. The design keeps everything between x and
+first product waits for its loads. At C=768 (the SDXL refiner's ds2, on
+clusters of three blocks) x and the gated tiles leave no room for a turn of
+w2 a warpgroup: a w2 slot holds one 64-column tile there, one a warpgroup,
+so the second product waits for each tile's load. The kernel's header gives
+the reckoning and `PERF.md` the measurements. The design keeps everything between x and
 out on the SM: the inner dimension is a loop inside the block, the weights
 arrive by TMA through two rings of swizzled slots filled by a producer
 warpgroup, two consumer warpgroups a block run wgmma and split the columns of
@@ -28,18 +31,19 @@ the fp32 output tile stays in registers for the whole loop. At C=640 a
 cluster of two blocks takes the same 64 rows, 320 output columns each; each
 block gates half of every tile and writes it into both blocks' shared memory
 (distributed shared memory, an mbarrier per tile with cluster-scope release
-and acquire). No fp32 partial and no (N, 2*inner) intermediate reaches
-device memory; the wrapper allocates the output and nothing else, and the
-biases are read as stored (bf16 or fp32).
+and acquire); at C=768 a cluster of three, 256 columns a block. No fp32
+partial and no (N, 2*inner) intermediate reaches device memory; the wrapper
+allocates the output and nothing else, and the biases are read as stored
+(bf16 or fp32).
 
 `ff_fits(m, c, inner)` says which shapes the kernel serves; `ff_geglu` is the
 one switch: a bf16 call that fits goes to the kernel, any other to the
 unfused route (`ff_geglu_unfused`: two `F.linear` and `a * gelu(g)` in the
 compute dtype, the JAX package's `_ff_unfused`), counted in `LAUNCHES` and
-`ROUTES`. Of the UNet's levels ds1 (C=320) and ds2 (C=640) fit. ds4 and ds8
-(C=1280) fit no cluster: x alone (64 x 1280) would take 160 KB of each
-block's shared memory; the JAX package's own `ff_fits` keeps those two
-levels on XLA as well.
+`ROUTES`. Of the UNet's levels ds1 (C=320) and ds2 (C=640) fit, and the
+refiner's ds2 (C=768). ds4 and ds8 (C=1280; the refiner's C=1536) fit no
+cluster: x alone (64 x 1280) would take 160 KB of each block's shared
+memory; the JAX package's own `ff_fits` keeps those levels on XLA as well.
 
 Weights are in torch Linear layout: w1 (2*inner, C), w2 (C, inner). Under
 autograd the kernel's gradient is autograd of `ff_geglu_unfused`, recomputed
@@ -69,7 +73,7 @@ MAX_BLOCK_COLS = 320  # output columns a block's registers hold
 W2_TILES = 4  # w2 tiles (a warpgroup's rows x 64 columns) a block keeps
 AG_BUFFERS = 2  # the gated tile is double-buffered
 MAX_W1_STAGES = 16
-KERNEL_WIDTHS = (64, 128, 320, 640)  # instantiations in csrc/geglu_ff_c*.cu
+KERNEL_WIDTHS = (64, 128, 320, 640, 768)  # instantiations in csrc/geglu_ff_c*.cu
 
 
 def cluster_blocks(c: int) -> int:
@@ -131,9 +135,9 @@ def ff_fits(m: int, c: int, inner: int) -> bool:
     output tile of a block's 64 rows must fit the registers of two
     warpgroups beside the first product's tile, within the 168 a thread that
     a block with a producer warpgroup gets: 320 columns a block, so c = 640
-    (the UNet's ds2) takes a cluster of two blocks. c = 1280 fits no
-    cluster: x alone (64 x 1280) would take 160 KB of each block's shared
-    memory."""
+    (the UNet's ds2) takes a cluster of two blocks and c = 768 (the
+    refiner's ds2) one of three. c = 1280 fits no cluster: x alone (64 x
+    1280) would take 160 KB of each block's shared memory."""
     return m > 0 and c in KERNEL_WIDTHS and inner > 0 and inner % turn_cols(c) == 0
 
 
@@ -160,14 +164,16 @@ class FFPlan(NamedTuple):
     order block 0 loads them, ("w1", warpgroup, k) = the a rows [turn start +
     GATED * warpgroup, + GATED) and the same g rows of w1, columns [64 k, +
     64); `w2_turn` the w2 slots, ("w2", warpgroup, row, chunk) = rows [row, +
-    c / (2 * cluster)) of w2, columns [turn start + 64 chunk, + 64). Block r
-    of a cluster takes warpgroups 2 r and 2 r + 1 of both lists; within a
+    c / (2 * cluster)) of w2, columns [turn start + 64 chunk, + 64); a w2
+    slot holds `w2_tiles` of a warpgroup's tiles (the turn's, or one). Block
+    r of a cluster takes warpgroups 2 r and 2 r + 1 of both lists; within a
     block the two take alternate slots of each ring."""
     blocks: int
     cluster: int
     turns: int
     w1_stages: int
     w2_stages: int
+    w2_tiles: int
     w1_turn: tuple
     w2_turn: tuple
     smem: int
@@ -179,7 +185,9 @@ class FFPlan(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def ff_plan(m: int, c: int, inner: int) -> FFPlan:
     """Tile plan of `fused_ff_geglu` (cached: a path asks for the same few
-    shapes on every call). Raises on a shape `ff_fits` refuses."""
+    shapes on every call). Raises on a shape `ff_fits` refuses, and on a
+    width whose w1 ring would hold fewer than two slots a warpgroup (its
+    first product frees a slot only after the next one's wgmma is issued)."""
     if not ff_fits(m, c, inner):
         raise ValueError(f"ff_plan: ({m}, {c}) x inner {inner} does not fit the kernel "
                          f"(C in {KERNEL_WIDTHS}, inner in whole turns)")
@@ -190,16 +198,23 @@ def ff_plan(m: int, c: int, inner: int) -> FFPlan:
                     for w in range(2))
     w2_turn = tuple(("w2", 2 * r + w, (2 * r + w) * cols, kc) for r in range(cl)
                     for kc in range(chunks) for w in range(2))
-    slot1, slot2 = 2 * GATED * 128, cols * 128
-    w2_stages = W2_TILES // chunks  # a slot holds a warpgroup's tiles of one turn
+    slot1, tile2 = 2 * GATED * 128, cols * 128
+    # a w2 slot holds a warpgroup's tiles of one turn, W2_TILES of them in
+    # the ring; three chunks a turn (C=768) would not fit so: one tile a
+    # slot, one slot a warpgroup
+    w2_tiles = chunks if chunks <= 2 else 1
+    w2_stages = W2_TILES // chunks if chunks <= 2 else 2
     resident = ((c // 64) * CHUNK_BYTES + AG_BUFFERS * chunks * CHUNK_BYTES
-                + W2_TILES * slot2)
+                + w2_stages * w2_tiles * tile2)
     w1_stages = min(MAX_W1_STAGES, (SMEM_CAP - 1024 - 256 - resident) // slot1) & ~1
+    if w1_stages < 4:
+        raise ValueError(f"ff_plan: C={c} leaves the w1 ring {max(w1_stages, 0)} slots; the "
+                         "kernel needs two a warpgroup")
     barriers = 2 * w1_stages + 2 * w2_stages + 1 + AG_BUFFERS
     smem = resident + w1_stages * slot1 + barriers * 8 + 1024
     return FFPlan(
-        -(-m // BLOCK_ROWS) * cl, cl, inner // turn_cols(c), w1_stages, w2_stages, w1_turn,
-        w2_turn, smem,
+        -(-m // BLOCK_ROWS) * cl, cl, inner // turn_cols(c), w1_stages, w2_stages, w2_tiles,
+        w1_turn, w2_turn, smem,
         MatrixMap(c, m, 2 * c, 64, BLOCK_ROWS),
         MatrixMap(c, 2 * inner, 2 * c, 64, GATED),
         MatrixMap(inner, c, 2 * inner, 64, cols),

@@ -11,7 +11,11 @@ GroupNorm is one cooperative launch with the affine as the module keeps it
 its rows, a grid barrier, then each block normalises its rows walking them
 in reverse, so part of that second read comes from L2. `gn_plan` cuts the
 rows by shape, and a batch too large for one resident grid into several
-launches over batch chunks. LayerNorm reads each row once: 8, 16 or 32 lanes
+launches over batch chunks. Rows wider than 2560 channels (the SDXL
+refiner's decoder joins reach 3072) take blocks of up to 384 threads at 3
+an SM (`gn_coop_blocks`). `group_norm_fits` says which shapes the kernel
+takes; `nn/core.group_norm` sends any other to `group_norm_plain` by route,
+before the call. LayerNorm reads each row once: 8, 16 or 32 lanes
 share a row (`ln_plan`), hold it in registers between the fp32 statistics
 and the normalise, and round once on store; the affine is read as stored.
 
@@ -33,8 +37,24 @@ from instancediffusion_tpu_torch.kernels import _build
 from instancediffusion_tpu_torch.kernels._vjp import plain_vjp
 
 _MAX_GROUPS = 64
-GN_MAX_THREADS = 320  # one thread per 8-channel vector of a row: C <= 2560
+GN_NARROW_THREADS = 320  # kGnMaxThreads in csrc/norms.cu: C <= 2560 at 4 blocks an SM
+GN_MAX_THREADS = 384  # one thread per 8-channel vector of a row: C <= 3072
 GN_COOP_BLOCKS_PER_SM = 4  # kCoopBlocksPerSM in csrc/norms.cu: all blocks resident
+GN_WIDE_BLOCKS_PER_SM = 3  # kCoopWideBlocksPerSM: the wide form's, above 320 threads
+
+
+def group_norm_fits(c: int, num_groups: int) -> bool:
+    """Whether the GroupNorm kernel takes rows of c channels in num_groups
+    groups: c a multiple of 8 (one 16-byte vector a thread) up to 3072,
+    divisible by the groups, at most 64 groups."""
+    return (c % 8 == 0 and c // 8 <= GN_MAX_THREADS and num_groups <= _MAX_GROUPS
+            and c % num_groups == 0)
+
+
+def gn_coop_blocks(c: int) -> int:
+    """Blocks an SM of the cooperative grid for rows of c channels: 4 for
+    the narrow form (up to 320 threads), 3 for the wide one."""
+    return GN_COOP_BLOCKS_PER_SM if c // 8 <= GN_NARROW_THREADS else GN_WIDE_BLOCKS_PER_SM
 
 
 def group_norm_plain(x, scale, bias, num_groups=32, eps=1e-5, act="none"):
@@ -79,14 +99,14 @@ class GnPlan(NamedTuple):
 def gn_plan(b: int, n: int, c: int, sm_count: int) -> GnPlan:
     """Grid and shared memory of one GroupNorm call: one thread per 8-channel
     vector of a row times the rows a block takes at once, and each sample's
-    rows split over at most GN_COOP_BLOCKS_PER_SM blocks per SM in all, so
+    rows split over at most `gn_coop_blocks(c)` blocks per SM in all, so
     the whole grid is resident for its barrier. A batch above that many
     blocks is cut into the fewest equal launches that are each resident."""
     if c % 8 or c // 8 > GN_MAX_THREADS:
         raise ValueError(f"gn_plan: C={c} must be a multiple of 8 <= {8 * GN_MAX_THREADS}")
     lanes = c // 8
     threads = lanes * max(1, 256 // lanes)
-    total = sm_count * GN_COOP_BLOCKS_PER_SM
+    total = sm_count * gn_coop_blocks(c)
     chunk = -(-b // -(-b // total))
     rows_per = -(-n // max(1, total // chunk))
     return GnPlan(-(-n // rows_per), rows_per, threads, threads * 8 * 4, chunk)
@@ -146,10 +166,10 @@ def fused_group_norm(x, scale, bias, num_groups=32, eps=1e-5, act="none"):
 def _group_norm_kernel(x, scale, bias, num_groups, eps, act):
     b, n, c = x.shape
     _build.require_cuda("fused_group_norm", x)
-    if c % num_groups or c % 8 or num_groups > _MAX_GROUPS:
+    if not group_norm_fits(c, num_groups):
         raise ValueError(
-            f"fused_group_norm: C={c} must be a multiple of 8 and divisible by "
-            f"G={num_groups} <= {_MAX_GROUPS}"
+            f"fused_group_norm: C={c} must be a multiple of 8 <= {8 * GN_MAX_THREADS} and "
+            f"divisible by G={num_groups} <= {_MAX_GROUPS}"
         )
     if act not in ("none", "silu"):
         raise ValueError(f"fused_group_norm: act={act!r}")

@@ -212,7 +212,10 @@ def _apply_fuser(p: Fuser, x, objs, num_heads, gate_scale, impl, fuser_mask=None
 
 
 class TransformerBlock(torch.nn.Module):
-    def __init__(self, dim, context_dim, *, generator=None, device=None):
+    """with_fuser=False: the plain SD / SDXL block (the refiner's), which
+    has no `fuser`; its caller passes gate_scale 0, so none is looked for."""
+
+    def __init__(self, dim, context_dim, with_fuser=True, *, generator=None, device=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
         self.attn1 = MHA(dim, dim, dim, **kw)
@@ -221,7 +224,8 @@ class TransformerBlock(torch.nn.Module):
         self.norm1 = nn.Norm(dim, device=device)
         self.norm2 = nn.Norm(dim, device=device)
         self.norm3 = nn.Norm(dim, device=device)
-        self.fuser = Fuser(dim, context_dim, **kw)
+        if with_fuser:
+            self.fuser = Fuser(dim, context_dim, **kw)
 
     def forward(self, x, context, objs, num_heads, gate_scale, impl, fuser_mask=None):
         """self-attn -> fuser (skipped at gate 0) -> cross-attn -> FF."""
@@ -235,13 +239,14 @@ class TransformerBlock(torch.nn.Module):
 
 
 class SpatialTransformer(torch.nn.Module):
-    def __init__(self, ch, context_dim, depth, *, generator=None, device=None):
+    def __init__(self, ch, context_dim, depth, with_fuser=True, *, generator=None,
+                 device=None):
         super().__init__()
         kw = dict(generator=generator, device=device)
         self.norm = nn.Norm(ch, device=device)
         self.proj_in = nn.Conv2d(ch, ch, 1, **kw)
         self.blocks = torch.nn.ModuleList(
-            TransformerBlock(ch, context_dim, **kw) for _ in range(depth))
+            TransformerBlock(ch, context_dim, with_fuser, **kw) for _ in range(depth))
         self.proj_out = nn.Conv2d(ch, ch, 1, zero=True, **kw)
 
     def forward(self, x, context, objs, num_heads, gate_scale, impl, fuser_mask=None):

@@ -11,9 +11,10 @@ OIHW, norms `weight`/`bias`. Initialisers mirror the JAX package (kaiming
 uniform fan-in, uniform bias) and draw from an explicit `torch.Generator`.
 
 Norms and the GEGLU feed-forward dispatch to the hand-written kernels
-(`kernels/`) by dtype, as the JAX package does: bf16 activations go to the
-kernels (LayerNorm's also takes fp32 rows), any other dtype to the plain
-versions, and so does everything inside a `plain_kernels()` block. Each
+(`kernels/`) by dtype and shape, as the JAX package does: bf16 activations
+go to the kernels (LayerNorm's also takes fp32 rows), any other dtype to
+the plain versions, and so does a GroupNorm width the kernel does not take
+(`group_norm_fits`) and everything inside a `plain_kernels()` block. Each
 kernel wrapper uses its plain PyTorch version only for CPU tensors.
 """
 
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 
 from instancediffusion_tpu_torch.kernels import kernel_dtype
 from instancediffusion_tpu_torch.kernels.norms import (
-    fused_group_norm, fused_layer_norm, group_norm_plain, layer_norm_plain,
+    fused_group_norm, fused_layer_norm, group_norm_fits, group_norm_plain, layer_norm_plain,
 )
 
 
@@ -148,10 +149,12 @@ def takes_kernel(x: torch.Tensor, fp32_too: bool = False) -> bool:
 
 def group_norm(p: Norm, x, num_groups=32, eps=1e-5, act="none"):
     """GroupNorm over the channel (last) axis of an NHWC / (B,N,C) tensor,
-    with an optionally fused trailing SiLU (`act="silu"`)."""
+    with an optionally fused trailing SiLU (`act="silu"`). A width the
+    kernel does not take goes to the plain version by route."""
     shape = x.shape
     x3 = x.reshape(shape[0], -1, shape[-1])
-    fn = fused_group_norm if takes_kernel(x) else group_norm_plain
+    routed = takes_kernel(x) and group_norm_fits(shape[-1], num_groups)
+    fn = fused_group_norm if routed else group_norm_plain
     return fn(x3, p.weight, p.bias, num_groups, eps, act).reshape(shape)
 
 

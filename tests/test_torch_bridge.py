@@ -175,6 +175,14 @@ def test_port_config_matches_jax(preset):
     assert pconfig.TEST_PRESETS == jconfig.TEST_PRESETS
 
 
+@pytest.mark.parametrize("name", ["RefinerUNetConfig", "OpenCLIPTextConfig"])
+def test_port_refiner_config_matches_jax(name):
+    """The port's copies of the SDXL refiner's UNet and OpenCLIP-bigG
+    configs have the JAX package's defaults, field for field."""
+    assert (dataclasses.asdict(getattr(pconfig, name)())
+            == dataclasses.asdict(getattr(jconfig, name)()))
+
+
 def test_port_config_rejects_unknown_keys():
     with pytest.raises(KeyError, match="refiner"):
         pconfig.load_config(overrides={"refiner": {"steps": 2}})
@@ -204,6 +212,8 @@ def test_port_import_leaves_jax_out():
         "import instancediffusion_tpu_torch.data.jsondataset, instancediffusion_tpu_torch.data.jpeg\n"
         "import instancediffusion_tpu_torch.data.resample, instancediffusion_tpu_torch.data._native\n"
         "import instancediffusion_tpu_torch.utils.logging\n"
+        "import instancediffusion_tpu_torch.pipeline_refiner\n"
+        "import instancediffusion_tpu_torch.models.sdxl_refiner\n"
         "banned = ('jax', 'instancediffusion_tpu', 'PIL', 'cv2', 'safetensors')\n"
         "mods = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not mods, mods\n"

@@ -324,17 +324,23 @@ def test_kernels_reject_what_they_do_not_take(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["self", "fuser", "fuser_kv_len", "labeled", "packed"])
+@pytest.mark.parametrize("case", ["self", "fuser", "fuser_kv_len", "labeled", "packed",
+                                  "packed_c64"])
 def test_flash_forward_at_main_batch_on_card(dev, case):
     """K1 / K1-L / K2 at the UNet's B=16: ds1 self, the 4280-key fuser
     (unpadded, and pre-padded to 4608 with kv_len), the labeled fuser (META-
-    like boxes on half the batch) and the packed ds2 fuser."""
+    like boxes on half the batch) and the packed ds2 fuser; and K2 at the
+    SDXL refiner's ds2 self-attention, 12 heads of 64 (one 64-column box a
+    head)."""
     g = torch.Generator(device=dev).manual_seed(6)
     b = 16
-    if case == "packed":
-        q, k, v = _rnd(g, dev, b, 1024, 640), _rnd(g, dev, b, 1208, 640), _rnd(g, dev, b, 1208, 640)
-        kern = lambda: fa.flash_attention_packed(q, k, v, 8)
-        ref = sdpa_fp32(_heads(q, 8), _heads(k, 8), _heads(v, 8)).transpose(1, 2).reshape(b, 1024, 640)
+    if case.startswith("packed"):
+        h, c, m = (12, 64, 1024) if case == "packed_c64" else (8, 80, 1208)
+        q = _rnd(g, dev, b, 1024, h * c)
+        k, v = _rnd(g, dev, b, m, h * c), _rnd(g, dev, b, m, h * c)
+        kern = lambda: fa.flash_attention_packed(q, k, v, h)
+        ref = sdpa_fp32(_heads(q, h), _heads(k, h), _heads(v, h)).transpose(1, 2).reshape(
+            b, 1024, h * c)
     else:
         m = {"self": 4096, "fuser": 4280, "fuser_kv_len": 4608, "labeled": 4280}[case]
         kv = 4280 if case == "fuser_kv_len" else m
@@ -398,12 +404,16 @@ def test_labeled_fully_masked_rows_on_card(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(16, 4096, 320), (16, 4096, 640), (16, 64, 2560),
-                                   (16, 1024, 1920), (8, 262144, 128), (2, 7, 64)],
+                                   (16, 1024, 1920), (8, 262144, 128), (2, 7, 64),
+                                   (16, 256, 3072), (16, 64, 3072), (16, 256, 2304),
+                                   (16, 1024, 2304), (16, 4096, 1152), (2, 16384, 384)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_group_norm_main_shapes_on_card(dev, shape):
     """K3 at the ds1 (320 and 640 channels), ds8 and ds2 (1920) rows, the
     VAE decoder's largest rows and a sample with fewer rows than blocks,
-    with the affine in bf16 (as the modules keep it) and in fp32."""
+    and at the SDXL refiner's rows (its decoder's 3072- and 2304-channel
+    joins, the wide form above 2560; ds1 at 1024 px), with the affine in
+    bf16 (as the modules keep it) and in fp32."""
     g = torch.Generator(device=dev).manual_seed(9)
     b, n, c = shape
     x = _rnd(g, dev, b, n, c, std=3.0) + 0.5
@@ -708,21 +718,23 @@ def _ff_case(g, dev, m, c, bias_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("batch", [2, 16])
-@pytest.mark.parametrize("level", ["ds1", "ds2", "ds4", "ds8"])
+@pytest.mark.parametrize("level", ["ds1", "ds2", "ds4", "ds8", "refiner_ds2", "refiner_ds4"])
 def test_ff_geglu_levels_on_card(dev, level, batch, bias_dtype):
     """Every transformer FF of the UNet through the one switch: ds1 and ds2
     (C=640, clusters of two blocks) launch the fused kernel once, ds4 and
-    ds8 (C=1280) take the unfused route; both within tolerance of the fp32
-    plain version, biases bf16 or fp32 as stored, and the kernel bitwise
-    equal across two runs."""
-    n, c = {"ds1": (4096, 320), "ds2": (1024, 640), "ds4": (256, 1280), "ds8": (64, 1280)}[level]
+    ds8 (C=1280) take the unfused route; the SDXL refiner's ds2 (C=768,
+    clusters of three) the kernel and its ds4 (C=1536) the unfused route;
+    both within tolerance of the fp32 plain version, biases bf16 or fp32 as
+    stored, and the kernel bitwise equal across two runs."""
+    n, c = {"ds1": (4096, 320), "ds2": (1024, 640), "ds4": (256, 1280), "ds8": (64, 1280),
+            "refiner_ds2": (1024, 768), "refiner_ds4": (256, 1536)}[level]
     args = _ff_case(torch.Generator(device=dev).manual_seed(3), dev, batch * n, c, bias_dtype)
     args[0] = args[0].reshape(batch, n, c)
     kernels.reset_launch_counts()
     out = ff.ff_geglu(*args)
     torch.cuda.synchronize()
     fits = ff.ff_fits(batch * n, c, 4 * c)
-    assert fits == (c in (320, 640))
+    assert fits == (c in (320, 640, 768))
     assert kernels.LAUNCHES["fused_ff_geglu"] == int(fits)
     assert kernels.ROUTES["ff_geglu_unfused"] == int(not fits)
     ref = ff.ff_geglu_plain(*args).float()
@@ -735,7 +747,8 @@ def test_ff_geglu_levels_on_card(dev, level, batch, bias_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m, c", [(8229, 320), (2053, 320), (77, 320), (1, 320), (200, 128),
-                                  (130, 64), (2053, 640), (19328, 640), (1, 640)])
+                                  (130, 64), (2053, 640), (19328, 640), (1, 640), (2053, 768),
+                                  (77, 768), (1, 768)])
 def test_ff_geglu_ragged_rows_on_card(dev, m, c):
     """Row counts off the cluster's 64 rows: the last row tile's missing rows
     are read as zero and never stored."""
@@ -800,7 +813,8 @@ def test_layer_norm_shapes_on_card(dev, rows, c, dtype, affine_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b, n, c", [(558, 64, 320), (600, 64, 1280), (558, 1024, 320)])
+@pytest.mark.parametrize("b, n, c", [(558, 64, 320), (600, 64, 1280), (558, 1024, 320),
+                                     (600, 64, 3072)])
 def test_group_norm_large_batch_on_card(dev, b, n, c):
     """A batch above the card's resident blocks (528 on an H100; 558 rows is
     generate at mis=0.36 with 30 instances and 9 images) runs in several

@@ -411,8 +411,8 @@ def test_cli_matches_jax_end_to_end(cli_files, tmp_path, monkeypatch):
 
 def test_cli_img2img_and_refused_options(tmp_path, monkeypatch):
     """--img2img reads a PNG at the model's resolution and writes its
-    edits; another size raises naming the resolution; --cascade_strength
-    raises (no refiner)."""
+    edits; another size raises naming the resolution. (--cascade_strength
+    runs the refiner: tests/test_torch_refiner.py.)"""
     cfg = port_config(cli_config())
     monkeypatch.setenv("IDTPU_ALLOW_HASH_TOKENIZER", "1")
     monkeypatch.setattr(pinf, "Config", lambda: cfg)
@@ -427,8 +427,6 @@ def test_cli_img2img_and_refused_options(tmp_path, monkeypatch):
     (tmp_path / "big.png").write_bytes(png_bytes(np.zeros((24, 16, 3), np.uint8)))
     with pytest.raises(ValueError, match="16x16"):
         pinf.main(base + ["--img2img", str(tmp_path / "big.png")])
-    with pytest.raises(NotImplementedError, match="refiner"):
-        pinf.main(base + ["--cascade_strength", "0.3"])
 
 
 @pytest.mark.parametrize("exists", [True, False])

@@ -33,6 +33,14 @@ GN_SHAPES = [(16, n, c) for n, c in (
     (1024, 1920), (256, 640), (256, 1280), (256, 1920), (256, 2560), (64, 1280), (64, 2560))]
 GN_SHAPES += [(8, n, c) for n, c in (
     (4096, 512), (16384, 512), (65536, 256), (65536, 512), (262144, 128), (262144, 256))]
+# the SDXL refiner's B=16 forward at 512 px (8 images under CFG): its decoder
+# joins reach 3072 channels, which take the wide form (384 threads, 3 blocks
+# an SM)
+REFINER_GN_SHAPES = [(16, n, c) for n, c in (
+    (4096, 384), (4096, 768), (4096, 1152), (1024, 384), (1024, 768), (1024, 1152),
+    (1024, 1536), (1024, 2304), (256, 768), (256, 1536), (256, 2304), (256, 3072),
+    (64, 1536), (64, 3072))]
+GN_SHAPES += REFINER_GN_SHAPES
 
 
 def _heads(t, h):
@@ -62,6 +70,16 @@ def test_tma_plan_ds2_packed_layout():
     plan = fa.tma_plan((16, 8), (x.stride(0), 80, x.stride(1)), 80, 1208)
     assert plan.dims == (80, 8, 1208, 16)
     assert plan.strides == (160, 1280, 1208 * 1280)
+    assert plan.box == (64, 1, 128, 1) and plan.order == (1, 2, 3)
+
+
+def test_tma_plan_refiner_ds2_packed_layout():
+    """The SDXL refiner's ds2 self-attention, (B,1024,12*64): one 64-column
+    box covers a head, 128-byte head stride."""
+    x = torch.empty(16, 1024, 768, device="meta")
+    plan = fa.tma_plan((16, 12), (x.stride(0), 64, x.stride(1)), 64, 1024)
+    assert plan.dims == (64, 12, 1024, 16)
+    assert plan.strides == (128, 1536, 1024 * 1536)
     assert plan.box == (64, 1, 128, 1) and plan.order == (1, 2, 3)
 
 
@@ -146,7 +164,7 @@ def test_gn_plan_covers_every_row_and_channel_once(shape, sm_count):
     assert plan.threads % lanes == 0 and plan.threads <= norms.GN_MAX_THREADS
     assert sorted(8 * (t % lanes) + e for t in range(lanes) for e in range(8)) == list(range(c))
     # the whole cooperative grid is resident for its barrier
-    assert b * plan.splits <= sm_count * norms.GN_COOP_BLOCKS_PER_SM
+    assert b * plan.splits <= sm_count * norms.gn_coop_blocks(c)
     assert plan.launches(b) == [(0, b)]
     assert plan.smem == plan.threads * 8 * 4
 
@@ -156,13 +174,13 @@ def test_gn_plan_fills_the_card_at_the_main_path_shapes():
     holds resident (rows_per is rounded up, so a few chunks may go)."""
     for b, n, c in GN_SHAPES:
         plan = norms.gn_plan(b, n, c, 132)
-        per_sample = 132 * norms.GN_COOP_BLOCKS_PER_SM // b
+        per_sample = 132 * norms.gn_coop_blocks(c) // b
         assert plan.splits >= 0.9 * min(n, per_sample), (b, n, c, plan)
 
 
-@pytest.mark.parametrize("b, n, c", [(2, 64, 36), (2, 64, 2568)])
+@pytest.mark.parametrize("b, n, c", [(2, 64, 36), (2, 64, 3080)])
 def test_gn_plan_rejects_what_the_kernel_cannot_take(b, n, c):
-    """A channel count off 8 or past 2560."""
+    """A channel count off 8 or past 3072."""
     with pytest.raises(ValueError):
         norms.gn_plan(b, n, c, 132)
 
@@ -170,12 +188,12 @@ def test_gn_plan_rejects_what_the_kernel_cannot_take(b, n, c):
 # 558: generate at mis=0.36 with 30 instances and 9 images (2 * 31 * 9 rows)
 @pytest.mark.parametrize("sm_count", [132, 114, 66])
 @pytest.mark.parametrize("b, n, c", [(558, 4096, 320), (558, 64, 1280), (600, 64, 320),
-                                     (529, 1024, 640), (2000, 256, 1280)])
+                                     (529, 1024, 640), (2000, 256, 1280), (600, 64, 3072)])
 def test_gn_plan_cuts_a_large_batch_into_resident_launches(b, n, c, sm_count):
     """A batch above the blocks the card holds resident goes in several
     cooperative launches: every sample in exactly one, every launch's grid
     resident, the launches as equal as the batch allows."""
-    resident = sm_count * norms.GN_COOP_BLOCKS_PER_SM
+    resident = sm_count * norms.gn_coop_blocks(c)
     plan = norms.gn_plan(b, n, c, sm_count)
     launches = plan.launches(b)
     seen = torch.zeros(b, dtype=torch.int32)
@@ -190,6 +208,36 @@ def test_gn_plan_cuts_a_large_batch_into_resident_launches(b, n, c, sm_count):
     assert plan.splits * plan.rows_per >= n > (plan.splits - 1) * plan.rows_per
 
 
+@pytest.mark.parametrize("c, narrow", [(2560, True), (2568, False), (3072, False)])
+def test_gn_wide_form_above_320_threads(c, narrow):
+    """Up to 320 threads (C=2560) the narrow form, 4 blocks an SM; wider
+    rows one thread per vector still, 3 blocks an SM."""
+    plan = norms.gn_plan(16, 256, c, 132)
+    assert plan.threads == c // 8
+    assert norms.gn_coop_blocks(c) == (4 if narrow else 3)
+    assert (plan.threads <= norms.GN_NARROW_THREADS) == narrow
+
+
+@pytest.mark.parametrize("c, groups, fits", [
+    (3072, 32, True), (2304, 32, True), (384, 32, True), (3080, 8, False), (3200, 32, False),
+    (100, 4, False), (96, 12, True), (640, 128, False), (640, 48, False)])
+def test_group_norm_routes_by_shape(c, groups, fits, monkeypatch):
+    """`nn/core.group_norm` sends a bf16 width the kernel does not take
+    (`group_norm_fits`) to the plain version before the call, and never
+    raises on a width; one it takes goes to the kernel's wrapper."""
+    assert norms.group_norm_fits(c, groups) == fits
+    called = []
+    real = pnn.fused_group_norm
+    monkeypatch.setattr(pnn, "fused_group_norm",
+                        lambda *a, **k: called.append(1) or real(*a, **k))
+    x = torch.randn(2, 4, 4, c).to(torch.bfloat16)
+    p = pnn.Norm(c)
+    out = pnn.group_norm(p, x, num_groups=groups) if c % groups == 0 else None
+    if out is not None:
+        assert out.shape == x.shape and bool(out.isfinite().all())
+        assert called == ([1] if fits else [])
+
+
 # ---------------------------------------------------------------------------
 # GEGLU feed-forward: which shapes the fused kernel serves, and its tiles
 # ---------------------------------------------------------------------------
@@ -198,6 +246,9 @@ def test_gn_plan_cuts_a_large_batch_into_resident_launches(b, n, c, sm_count):
 # in one gate-1 forward (ds8 is the mid block)
 UNET_FF = {"ds1": (4096, 320, 10), "ds2": (1024, 640, 10), "ds4": (256, 1280, 10),
            "ds8": (64, 1280, 2)}
+# the SDXL refiner's at 512 px: depth-4 transformers, 5 at ds2 and at ds4
+# (2 in, 3 out), the middle at ds8
+REFINER_FF = {"ds2": (1024, 768, 20), "ds4": (256, 1536, 20), "ds8": (64, 1536, 4)}
 
 
 @pytest.mark.parametrize("batch", [2, 16, 80])
@@ -211,6 +262,18 @@ def test_ff_fits_routes_each_unet_level(batch):
     assert fits == {"ds1": True, "ds2": True, "ds4": False, "ds8": False}
     fused = sum(cnt for k, (_, _, cnt) in UNET_FF.items() if fits[k])
     assert (fused, sum(cnt for _, _, cnt in UNET_FF.values()) - fused) == (20, 12)
+
+
+@pytest.mark.parametrize("batch", [2, 16])
+def test_ff_fits_routes_each_refiner_level(batch):
+    """The refiner's ds2 (C=768, inner 3072: clusters of three blocks) goes
+    to the fused kernel, as JAX's ff_fits takes it; ds4 and the middle
+    (C=1536) to the unfused route. Per forward: 20 kernel launches, 24
+    unfused calls."""
+    fits = {k: ff.ff_fits(batch * n, c, 4 * c) for k, (n, c, _) in REFINER_FF.items()}
+    assert fits == {"ds2": True, "ds4": False, "ds8": False}
+    fused = sum(cnt for k, (_, _, cnt) in REFINER_FF.items() if fits[k])
+    assert (fused, sum(cnt for _, _, cnt in REFINER_FF.values()) - fused) == (20, 24)
 
 
 def test_ff_gate_erf_is_the_rational_of_the_source():
@@ -257,11 +320,11 @@ def test_ff_geglu_switch_counts_both_routes():
 
 @pytest.mark.parametrize("m, c", [(65536, 320), (32768, 320), (8229, 320), (2053, 320),
                                   (128, 64), (200, 128), (16384, 640), (2048, 640),
-                                  (2053, 640)])
+                                  (2053, 640), (16384, 768), (1024, 768), (2053, 768)])
 def test_ff_plan_covers_every_inner_chunk_once(m, c):
     """The tile plan: the three tensor maps (64-column boxes over the
     contiguous matrices, the weights' boxes one ring slot's rows); a cluster
-    of one block (two at C=640) per 64 rows; per turn every (warpgroup, C
+    of one block (two at C=640, three at C=768) per 64 rows; per turn every (warpgroup, C
     slice) of w1 and every (warpgroup's output rows, gated chunk) of w2 in
     exactly one ring slot, the two warpgroups of a block on alternate slots;
     every inner column gated once, every output column and every row owned
@@ -269,7 +332,7 @@ def test_ff_plan_covers_every_inner_chunk_once(m, c):
     inner = 4 * c
     plan = ff.ff_plan(m, c, inner)
     cl = plan.cluster
-    assert cl == ff.cluster_blocks(c) == (2 if c == 640 else 1)
+    assert cl == ff.cluster_blocks(c) == {640: 2, 768: 3}.get(c, 1)
     cols = c // (2 * cl)  # output columns a warpgroup
     assert cols <= ff.MAX_BLOCK_COLS // 2
     assert plan.x == (c, m, 2 * c, 64, 64)
@@ -308,16 +371,21 @@ def test_ff_plan_covers_every_inner_chunk_once(m, c):
     # shared memory: x, the double-buffered gated tile, both rings, the
     # barriers, 1 KB to align
     assert plan.w1_stages % 2 == 0 and plan.w2_stages % 2 == 0
-    assert plan.smem == (c * 128 + 2 * chunks * 8192 + plan.w2_stages * chunks * cols * 128
+    assert plan.smem == (c * 128 + 2 * chunks * 8192 + plan.w2_stages * plan.w2_tiles * cols * 128
                          + plan.w1_stages * 8192
                          + (2 * plan.w1_stages + 2 * plan.w2_stages + 3) * 8 + 1024)
     assert plan.smem <= 232448
     # the w1 ring holds a whole turn's slots where C allows (C=320: 10);
-    # C=640 leaves it two slots a warpgroup
-    assert plan.w1_stages >= (4 if c == 640 else min(16, 2 * (c // 64)))
-    # a w2 slot holds a warpgroup's rows for a whole turn: two turns each
-    # (C=640: one)
-    assert plan.w2_stages * chunks == 4
+    # C=640 leaves it two slots a warpgroup, C=768 three
+    assert plan.w1_stages >= {640: 4, 768: 6}.get(c, min(16, 2 * (c // 64)))
+    if chunks <= 2:
+        # a w2 slot holds a warpgroup's rows for a whole turn: two turns
+        # each (C=640: one)
+        assert plan.w2_tiles == chunks and plan.w2_stages * chunks == 4
+    else:
+        # C=768: a turn's three tiles would not fit; one tile a slot, one
+        # slot a warpgroup
+        assert (chunks, plan.w2_tiles, plan.w2_stages) == (3, 1, 2)
 
 
 @pytest.mark.parametrize("m, c, inner", [(4096, 1280, 5120), (16384, 640, 2560 + 64),
@@ -326,6 +394,21 @@ def test_ff_plan_refuses_what_does_not_fit(m, c, inner):
     assert not ff.ff_fits(m, c, inner)
     with pytest.raises(ValueError, match="does not fit"):
         ff.ff_plan(m, c, inner)
+
+
+@pytest.mark.parametrize("c", [1024, 1280])
+def test_ff_plan_refuses_a_w1_ring_under_two_slots_a_warpgroup(c, monkeypatch):
+    """A width whose x, gated tiles and w2 slots leave the w1 ring fewer
+    than two slots a warpgroup is refused by the plan itself (the first
+    product frees a slot only after issuing the next one's wgmma, so one
+    slot a warpgroup would deadlock), even if it were built."""
+    monkeypatch.setattr(ff, "KERNEL_WIDTHS", ff.KERNEL_WIDTHS + (c,))
+    ff.ff_plan.cache_clear()
+    try:
+        with pytest.raises(ValueError, match="two a warpgroup"):
+            ff.ff_plan(1024, c, 4 * c)
+    finally:
+        ff.ff_plan.cache_clear()
 
 
 # ---------------------------------------------------------------------------

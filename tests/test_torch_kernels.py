@@ -160,6 +160,8 @@ def test_flash_attention_labels_must_cover_the_sequence():
 
 @pytest.mark.parametrize("n,c,eps,act", [
     (64, 320, 1e-5, "silu"), (256, 640, 1e-6, "none"), (16, 512, 1e-6, "silu"),
+    # the SDXL refiner's decoder joins (1536 + 1536, 1536 + 768)
+    (64, 3072, 1e-5, "silu"), (32, 2304, 1e-5, "silu"),
 ])
 def test_group_norm_plain_matches_pallas_and_nn(n, c, eps, act):
     rng = np.random.default_rng(3)
@@ -226,6 +228,26 @@ def test_ff_geglu_plain_matches_erf_formula(n, c):
     _close(punet._apply_ff_geglu(mod, t(x)), ref)
     with pnn.plain_kernels():
         _close(punet._apply_ff_geglu(mod, t(x)), ref)
+
+
+def test_ff_geglu_plain_matches_pallas_at_the_refiner_width():
+    """K5 at the SDXL refiner's ds2 width (C=768, inner 3072), the shape the
+    C=768 kernel serves: the plain version against the Pallas kernel in
+    interpret mode (whose tanh GELU differs by GELU_TANH_REL of max |out|)
+    and against the model's exact-erf formula (ATOL)."""
+    rng = np.random.default_rng(25)
+    c, inner = 768, 3072
+    x = _rand(rng, 2, 64, c)
+    w1, b1 = _rand(rng, c, 2 * inner, scale=c ** -0.5), _rand(rng, 2 * inner, scale=0.1)
+    w2, b2 = _rand(rng, inner, c, scale=inner ** -0.5), _rand(rng, c, scale=0.1)
+    t = torch.from_numpy
+    assert ff.ff_fits(2 * 64, c, inner)
+    out = ff.fused_ff_geglu(t(x), t(w1.T.copy()), t(b1), t(w2.T.copy()), t(b2))
+    pallas = jfa_ff().fused_ff_geglu(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)), True)
+    _grad_close(out, pallas, rel=GELU_TANH_REL)
+    jp = {"proj": {"w": jnp.asarray(w1), "b": jnp.asarray(b1)},
+          "out": {"w": jnp.asarray(w2), "b": jnp.asarray(b2)}}
+    _close(out, junet._apply_ff_geglu(jp, jnp.asarray(x)))
 
 
 def test_cpu_wrappers_take_plain_path_and_count_nothing():

@@ -28,10 +28,21 @@ from tests.test_torch_trainer import TINY
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _env():
+    """The launcher's environment: one intra-op thread. Beside the suite's
+    other workers, a tiny CPU step on every core's worth of spinning
+    OpenMP threads took 4.3 s instead of 0.3 s, and the launcher missed its
+    kill timer."""
+    return dict(os.environ, IDTPU_ALLOW_HASH_TOKENIZER="1", PYTHONPATH=REPO,
+                OMP_NUM_THREADS="1")
+
+
 def _launch(args, env, cwd):
+    """The launcher in a session of its own, so a kill timer can end its
+    decode processes with it (`os.killpg`)."""
     return subprocess.Popen([sys.executable, "-m", "instancediffusion_tpu_torch.launch", *args],
                             cwd=cwd, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
 
 
 def test_launcher_sigterm_saves_and_resumes(tmp_path):
@@ -42,11 +53,11 @@ def test_launcher_sigterm_saves_and_resumes(tmp_path):
     config.write_text(json.dumps(dict(TINY, train={"ckpt_every_iters": 1000,
                                                    "n_sample_batches": 0, "workers": 2})))
     listing = chip_smoke.write_training_records(str(tmp_path / "recs"), n=4)
-    env = dict(os.environ, IDTPU_ALLOW_HASH_TOKENIZER="1", PYTHONPATH=REPO)
+    env = _env()
     common = ["--device", "cpu", "--yaml_file", str(config), "--train_list", listing,
               "--batch_size", "2", "--output_dir", str(tmp_path / "OUT"), "--name", "run"]
     proc = _launch(common + ["--total_iters", "100000"], env, REPO)
-    timer = threading.Timer(240, proc.kill)
+    timer = threading.Timer(240, os.killpg, (proc.pid, signal.SIGKILL))
     timer.start()
     lines = []
     try:
@@ -85,13 +96,9 @@ def test_launcher_sigterm_to_its_process_group_saves(tmp_path):
     config.write_text(json.dumps(dict(TINY, train={"ckpt_every_iters": 1000,
                                                    "n_sample_batches": 0, "workers": 2})))
     listing = chip_smoke.write_training_records(str(tmp_path / "recs"), n=4)
-    env = dict(os.environ, IDTPU_ALLOW_HASH_TOKENIZER="1", PYTHONPATH=REPO)
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "instancediffusion_tpu_torch.launch", "--device", "cpu",
-         "--yaml_file", str(config), "--train_list", listing, "--batch_size", "2",
-         "--output_dir", str(tmp_path / "OUT"), "--name", "run", "--total_iters", "100000"],
-        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        start_new_session=True)
+    proc = _launch(["--device", "cpu", "--yaml_file", str(config), "--train_list", listing,
+                    "--batch_size", "2", "--output_dir", str(tmp_path / "OUT"), "--name", "run",
+                    "--total_iters", "100000"], _env(), REPO)
     timer = threading.Timer(120, os.killpg, (proc.pid, signal.SIGKILL))
     timer.start()
     lines = []
