@@ -69,6 +69,29 @@ Phases, in order (each prints its lines; any failure exits non-zero):
              bit-equal to the in-memory ones, PNGs within one uint8 level of
              generate on the in-memory weights, the merged weight exact at
              one module, K1-K5 launched; file size, write and load seconds
+  eval       the COCO evaluation as users run it: synthetic COCO instances
+             and captions JSONs (8 images at COCO sizes, polygon and RLE
+             masks, a crowd annotation, then a ninth image without
+             annotations), then `evalsuite.coco_eval.main` (mask preset,
+             50-step PLMS, CFG 7.5, mis 0, batch 8, --add_random_colors)
+             from the cli phase's weights written as a flat SD-form file:
+             8 JPEGs under their COCO names read back at 512x512, s/image
+             and last_timings; each UNet forward (B=16), the VAE decode
+             (B=8), each CLIP text encode and each UniFusion tokenization
+             launches what the plan gives (`unet_launches`), the forwards
+             number the PLMS schedule's and nothing launches outside them
+             (the slice request's counts follow from the same plan); PiM
+             with the ground-truth masks as predictions (point mode: the
+             share of masks holding their own bbox center, counted
+             without the pim module); attribute binding with CLIPJudge at
+             ViT-L/14 (densified random weights, fp32) on every instance
+             crop, timed as the metric calls it: ms/crop, features finite
+  datagen    training records as users make them: an oracle COCO JSON over
+             the fixture JPEGs, `datagen.label.main --ckpt --write_train_txt`
+             (ClipPhraseEmbedder in bf16 on the card), then
+             `datagen.coco_to_training_jsons.main` over the same JSON; both
+             read back by JsonDataset (a B=4 batch each); records/s,
+             phrases/s, record bytes; 25 LayerNorm launches per CLIP encode
   resume     training save and resume at full width (Config(), B=4): one
              step, save_train_ckpt into an auto-resume folder, a fresh state
              restored from it, one more step on both with the same draws:
@@ -118,6 +141,7 @@ built library, in build/instancediffusion_tpu_torch/<hash>/build.log.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -2031,6 +2055,82 @@ def training_records(n: int = 12, seed: int = 0) -> list[dict]:
     return records
 
 
+COCO_SIZES = ((640, 480), (480, 640), (500, 375), (375, 500), (640, 427), (427, 640),
+              (612, 612), (333, 251))
+
+
+def _coco_polygon(rng, w: int, h: int) -> list:
+    """A COCO polygon part: 4-24 vertices around a center at random radii
+    (so it may cross itself), floats with one decimal, clipped to [0, w] x
+    [0, h] as COCO's are (a vertex on the far border rounds to w or h)."""
+    import numpy as np
+
+    n = int(rng.integers(4, 25))
+    cx, cy = rng.uniform(0.1, 0.9) * w, rng.uniform(0.1, 0.9) * h
+    ang = np.sort(rng.uniform(0, 2 * np.pi, n)) if rng.random() < 0.7 else rng.uniform(0, 6.3, n)
+    rad = rng.uniform(0.03, 0.45, n) * min(w, h)
+    xs = np.clip(cx + rad * np.cos(ang), 0, w).round(1)
+    ys = np.clip(cy + rad * np.sin(ang), 0, h).round(1)
+    return [float(v) for xy in zip(xs, ys) for v in xy]
+
+
+def synthetic_coco(images, seed: int = 0, empty_last: bool = True,
+                   crowd: bool = True) -> tuple[dict, dict]:
+    """COCO instances and captions JSON dicts for `images`, (file_name,
+    width, height) tuples, from numpy seed `seed`: 1-8 instances an image
+    with polygon segmentations (one or two parts, `_coco_polygon`) or RLE
+    ones (an ellipse, `geometry.rle_encode`), bboxes from their extents, and
+    one caption an image; with `crowd`, one more iscrowd annotation on the
+    first image; with `empty_last`, the last image has no annotation."""
+    import numpy as np
+
+    from instancediffusion_tpu_torch.data import geometry as geo
+
+    rng = np.random.default_rng(seed)
+    cats = [{"id": i + 1, "name": name} for i, name in enumerate(PHRASES)]
+    imgs, anns, caps = [], [], []
+    for i, (name, w, h) in enumerate(images):
+        img_id = 1000 + 7 * i
+        imgs.append({"id": img_id, "file_name": name, "width": w, "height": h})
+        caps.append({"id": 5000 + i, "image_id": img_id, "caption": f"a synthetic scene {i}. "})
+        if empty_last and i == len(images) - 1:
+            continue
+        n = int(rng.integers(1, 9)) + (1 if crowd and i == 0 else 0)
+        for k in range(n):
+            if rng.random() < 0.6:
+                seg = [_coco_polygon(rng, w, h) for _ in range(1 + int(rng.random() < 0.3))]
+                pts = np.concatenate([np.reshape(p, (-1, 2)) for p in seg])
+                x0, y0 = pts.min(0)
+                x1, y1 = pts.max(0)
+            else:
+                y, x = np.mgrid[0:h, 0:w]
+                cx, cy = rng.uniform(0.1, 0.9) * w, rng.uniform(0.1, 0.9) * h
+                rx, ry = rng.uniform(0.03, 0.3) * w, rng.uniform(0.03, 0.3) * h
+                mask = (((x - cx) / rx) ** 2 + ((y - cy) / ry) ** 2 < 1).astype(np.uint8)
+                seg = geo.rle_encode(mask)
+                ys, xs = np.nonzero(mask)
+                x0, y0, x1, y1 = xs.min(), ys.min(), xs.max() + 1, ys.max() + 1
+            anns.append({"id": 100 * i + k + 1, "image_id": img_id,
+                         "category_id": int(rng.integers(1, len(cats) + 1)),
+                         "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                         "area": float((x1 - x0) * (y1 - y0)), "segmentation": seg,
+                         "iscrowd": int(crowd and i == 0 and k == n - 1)})
+    return ({"images": imgs, "annotations": anns, "categories": cats},
+            {"images": imgs, "annotations": caps})
+
+
+def write_synthetic_coco(out_dir: str, images, seed: int = 0, **kw) -> tuple[str, str]:
+    """`synthetic_coco` written as instances.json and captions.json under
+    out_dir; returns both paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for name, data in zip(("instances.json", "captions.json"), synthetic_coco(images, seed, **kw)):
+        paths.append(os.path.join(out_dir, name))
+        with open(paths[-1], "w") as f:
+            json.dump(data, f)
+    return paths[0], paths[1]
+
+
 def write_training_records(out_dir: str, n: int = 12, seed: int = 0) -> str:
     """`training_records` as one JSON file each under out_dir, listed in
     out_dir/train.txt; returns the list's path."""
@@ -2044,6 +2144,396 @@ def write_training_records(out_dir: str, n: int = 12, seed: int = 0) -> str:
     with open(listing, "w") as f:
         f.write("\n".join(paths) + "\n")
     return listing
+
+
+# ---------------------------------------------------------------------------
+# evaluation and data generation
+# ---------------------------------------------------------------------------
+
+# the eval set: one image at each COCO size with annotations (a batch of
+# N_IMAGES, so the UNet and the VAE decoder run at the kernels' held B=16 and
+# B=8 shapes), then one without
+EVAL_IMAGES = [(f"{1000 + 7 * i:012d}.jpg", w, h)
+               for i, (w, h) in enumerate(COCO_SIZES + ((640, 424),))]
+EVAL_ALPHA = 0.8  # coco_eval's --alpha default
+
+
+def _record_calls(kernels, mod, name: str, key=lambda a, kw: None):
+    """Wrap `mod.name` to record each call's kernel launches and unfused
+    feed-forward calls, by key(args, kwargs); returns (records, undo)."""
+    orig = getattr(mod, name)
+    records: dict = {}
+
+    def counts():
+        return dict(kernels.LAUNCHES, **{FF_ROUTE: kernels.ROUTES[FF_ROUTE]})
+
+    def counted(*a, **kw):
+        before = counts()
+        out = orig(*a, **kw)
+        records.setdefault(key(a, kw), []).append(
+            {k: v - before.get(k, 0) for k, v in counts().items() if v != before.get(k, 0)})
+        return out
+
+    setattr(mod, name, counted)
+    return records, lambda: setattr(mod, name, orig)
+
+
+def unet_launches(cfg, px: int, rows: int, gate: bool) -> dict:
+    """Kernel launches and unfused feed-forward calls of one SD1.5 UNet
+    forward over `rows` samples at px pixels, from the plan: two GroupNorms
+    a res block, one a spatial transformer and the output norm; three
+    LayerNorms a transformer block and two more in its fuser at gate on;
+    its self-attention and the fuser's [x | objs] attention on the route
+    `flash_route` gives (split heads at c=40, packed at c=80, plain on the
+    short ds4 and ds8 sequences), the cross-attention over 77 tokens
+    plain; a feed-forward a block and one in the fuser, fused where
+    `ff_fits`. Zero counts are left out."""
+    import torch
+
+    from instancediffusion_tpu_torch.kernels.geglu_ff import ff_fits
+    from instancediffusion_tpu_torch.models.unet import build_plan
+    from instancediffusion_tpu_torch.models.unifusion import num_grounding_tokens
+    from instancediffusion_tpu_torch.ops.attention import flash_route
+
+    m = cfg.model
+    inp, mid, out = build_plan(m)
+    specs = [sp for blk in inp + [mid] + out for sp in blk]
+    attn = [sp for sp in specs if sp.kind == "attn"]
+    n_res = sum(sp.kind == "res" for sp in specs)
+    n_objs = num_grounding_tokens(m.grounding_tokenizer, m.max_objs)
+    impl = "kernel" if m.efficient_attention else "plain"
+    by_route = {"split": "flash_attention", "packed": "flash_attention_packed"}
+    want = collections.Counter({"fused_group_norm": 2 * n_res + len(attn) + 1})
+    depth = m.transformer_depth
+    for sp in attn:
+        n, c = (px // 8 // sp.ds) ** 2, sp.out_ch // m.num_heads
+        for kv in (n, n + n_objs) if gate else (n,):
+            route = flash_route(impl, n, kv, torch.bfloat16, c)
+            if route in by_route:
+                want[by_route[route]] += depth
+        fused = ff_fits(rows * n, sp.out_ch, 4 * sp.out_ch)
+        want["fused_ff_geglu" if fused else FF_ROUTE] += depth * (2 if gate else 1)
+        want["fused_layer_norm"] += depth * (5 if gate else 3)
+    return dict(want)
+
+
+def _plms_forwards(alpha: float, steps: int = STEPS) -> tuple[int, int]:
+    """(gate-1, gate-0) UNet forwards of a PLMS request: one a step, two at
+    the first (its pseudo improved Euler step)."""
+    from instancediffusion_tpu_torch.config import Config
+    from instancediffusion_tpu_torch.ops.schedules import make_diffusion_schedule
+    from instancediffusion_tpu_torch.samplers.plms import make_plms_schedule
+
+    d = Config().diffusion
+    sched = make_plms_schedule(make_diffusion_schedule(d.beta_schedule, d.timesteps,
+                                                       d.linear_start, d.linear_end),
+                               steps, [alpha, 0.0, 1.0 - alpha])
+    on = [g > 0 for g in sched.gates]
+    n1 = int(sum(on)) + int(on[0])
+    return n1, len(on) + 1 - n1
+
+
+def _own_center_share(per_image) -> float:
+    """PiM in point mode when each ground-truth mask is its own prediction,
+    counted without the pim module: the image mean of the share of
+    non-empty masks whose bbox center (from their row and column extents)
+    they hold."""
+    import numpy as np
+
+    shares = []
+    for masks, _ in per_image:
+        hits = []
+        for m in masks:
+            rows, cols = np.flatnonzero(m.any(1)), np.flatnonzero(m.any(0))
+            if len(rows):
+                hits.append(int(m[(rows[0] + rows[-1]) // 2, (cols[0] + cols[-1]) // 2] == 1))
+        if hits:
+            shares.append(float(np.mean(hits)))
+    return float(np.mean(shares))
+
+
+def phase_eval(torch, dev, card: str, ckpt: str, slice_launches: dict) -> tuple[str, dict]:
+    """The paper's COCO evaluation on the port: synthetic COCO instances and
+    captions JSONs (8 images at COCO sizes with polygon and RLE masks and a
+    crowd annotation, then one image without annotations), then
+    `evalsuite.coco_eval.main` as users run it (the mask preset, 50-step
+    PLMS, CFG 7.5, mis 0, batch 8, --add_random_colors) on the smoke's
+    weights from `ckpt`: 8 JPEGs under their COCO names, each read back at
+    512x512; every UNet forward's launches (B=16), the VAE decode's (B=8),
+    every CLIP text encode's and every UniFusion tokenization's (its
+    ConvNeXt over the segs, for the conditional rows and the null row) held
+    to the counts their plans give, the UNet forwards to the PLMS
+    schedule's number, and no launch outside them; PiM with the ground-truth masks standing in for a detector's (in
+    point mode the share of masks that hold their own bbox center, counted
+    directly); attribute binding with CLIPJudge at ViT-L/14 (densified
+    random weights, fp32) on every instance crop, timed as the metric
+    calls it."""
+    import numpy as np
+
+    from instancediffusion_tpu_torch import kernels
+    from instancediffusion_tpu_torch.config import Config, apply_test_preset
+    from instancediffusion_tpu_torch.data.jpeg import decode_image, encode_jpeg
+    from instancediffusion_tpu_torch.evalsuite import attribute_binding as ab
+    from instancediffusion_tpu_torch.evalsuite import coco_eval, pim
+    from instancediffusion_tpu_torch.models import clip_text, unet, unifusion, vae
+    from instancediffusion_tpu_torch.models.clip_vision import CLIPJudge
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    cfg = apply_test_preset(Config(), "mask")
+    px, rows = 8 * cfg.model.image_size, 2 * N_IMAGES
+    try:
+        inst, caps = write_synthetic_coco(work, EVAL_IMAGES, seed=0)
+        out_dir = os.path.join(work, "generated")
+        gate_of = lambda a, kw: int(kw.get("gate_scale", 1.0) > 0)
+        recorders = [_record_calls(kernels, unet, "apply_unet", gate_of),
+                     _record_calls(kernels, vae, "vae_decode"),
+                     _record_calls(kernels, clip_text, "apply_clip_text"),
+                     _record_calls(kernels, unifusion, "apply_unifusion")]
+        kernels.reset_launch_counts()
+        try:
+            res = coco_eval.main(["--instances_json", inst, "--captions_json", caps,
+                                  "--ckpt_path", ckpt, "--save_dir", out_dir,
+                                  "--add_random_colors", "--device", dev.type])
+        finally:
+            for _, undo in recorders:
+                undo()
+        launches = dict(kernels.LAUNCHES)
+        n_unfused = kernels.ROUTES[FF_ROUTE]
+        names = sorted(os.listdir(out_dir))
+        want = sorted(n for n, _, _ in EVAL_IMAGES[:-1])
+        if res["images"] != N_IMAGES or names != want:
+            raise RuntimeError(f"eval: wrote {names} ({res['images']}), expected {want}")
+        imgs = {}
+        for name in names:
+            with open(os.path.join(out_dir, name), "rb") as f:
+                imgs[name] = decode_image(f.read())
+            if imgs[name].shape != (512, 512, 3) or int(imgs[name].max()) == int(imgs[name].min()):
+                raise RuntimeError(f"eval: {name} decodes to {imgs[name].shape}, or is flat")
+        missing = [k for k in PLAIN_PATH if launches.get(k, 0) <= 0]
+        if missing:
+            raise RuntimeError(f"eval: kernels never launched: {missing} ({launches})")
+        # the JPEG encoder on the host, per 512x512 image
+        t0 = time.perf_counter()
+        for _ in range(3):
+            for img in imgs.values():
+                encode_jpeg(img)
+        jpeg_ms = (time.perf_counter() - t0) / (3 * len(imgs)) * 1e3
+
+        # every call launches what its plan gives; nothing launches outside them
+        per_gate = recorders[0][0]
+        plan = {g: unet_launches(cfg, px, rows, bool(g)) for g in (1, 0)}
+        levels, blocks = len(cfg.autoencoder.ch_mult), cfg.autoencoder.num_res_blocks
+        decode_plan = {"fused_group_norm": 2 * levels * (blocks + 1) + 6}
+        encode_plan = {"fused_layer_norm": 2 * cfg.text_encoder.num_hidden_layers + 1}
+        # UniFusion's ConvNeXt over the seg masks: the stem's, each
+        # downsample's and each block's LayerNorm
+        gcfg = cfg.model.grounding_tokenizer
+        depths = gcfg.convnext_depths
+        tokens_plan = ({"fused_layer_norm": len(depths) + sum(depths)} if gcfg.use_segs else {})
+        n1, n0 = _plms_forwards(EVAL_ALPHA)
+        decodes = recorders[1][0].get(None, [])
+        encodes = recorders[2][0].get(None, [])
+        tokenizes = recorders[3][0].get(None, [])
+        checks = [(f"gate-{g} UNet forward", r, plan[g]) for g in (1, 0)
+                  for r in per_gate.get(g, [])]
+        checks += [("VAE decode", r, decode_plan) for r in decodes]
+        checks += [("CLIP text encode", r, encode_plan) for r in encodes]
+        checks += [("UniFusion tokenization", r, tokens_plan) for r in tokenizes]
+        for what, got, expect in checks:
+            if got != expect:
+                raise RuntimeError(f"eval: a {what} launched {got}, the plan gives {expect}")
+        if (len(per_gate.get(1, [])), len(per_gate.get(0, [])), len(decodes)) != (n1, n0, 1):
+            raise RuntimeError(f"eval: {len(per_gate.get(1, []))} + {len(per_gate.get(0, []))} "
+                               f"UNet forwards and {len(decodes)} decodes; the schedule gives "
+                               f"{n1} + {n0} and one batch one decode")
+        total = collections.Counter()
+        for _, got, _ in checks:
+            total.update(got)
+        if dict(total) != dict(launches, **{FF_ROUTE: n_unfused}):
+            raise RuntimeError(f"eval: launched {launches} and {n_unfused} unfused FF calls, "
+                               f"its UNet, decode, text encodes and UniFusion {dict(total)}")
+        # the slice request (B=8, mis 0, alpha 0.75) runs the same forwards
+        s1, s0 = _plms_forwards(0.75)
+        unet_kernels = ("flash_attention", "flash_attention_packed", "fused_ff_geglu")
+        slice_plan = {k: s1 * plan[1].get(k, 0) + s0 * plan[0].get(k, 0) for k in unet_kernels}
+        slice_req = {k: slice_launches.get(k, 0) / 2 for k in unet_kernels}
+        if slice_plan != slice_req:
+            raise RuntimeError(f"eval: the plan gives the slice request {slice_plan}, it "
+                               f"launched {slice_req}")
+
+        # PiM: the ground-truth masks at 512 stand in for a detector's
+        coco = coco_eval.CocoAnnotations(inst)
+        by_name = {im["file_name"]: i for i, im in coco.imgs.items()}
+        metas = {n: coco_eval.build_meta_for_image(
+            coco, by_name[n], rng=np.random.default_rng(by_name[n]), attribute_mode="colors")
+            for n in names}
+        per_image = [([s.astype(np.uint8) for s in metas[n]["segs"]],
+                      [s.astype(np.uint8) for s in metas[n]["segs"]]) for n in names]
+        pim_point = pim.pim_score(per_image, "point")
+        pim_scribble = pim.pim_score(per_image, "scribble")
+        # each GT mask matches itself, so point mode is the share of masks that
+        # hold their own bbox center: 1.0 for convex masks, less here, where
+        # polygons cross themselves and some masks have two parts
+        own = _own_center_share(per_image)
+        if pim_point != own:
+            raise RuntimeError(f"eval: PiM (point) {pim_point} with the GT masks as predictions, "
+                               f"their own centers give {own}")
+
+        # attribute binding: the ViT-L/14 judge on every instance crop, as
+        # the metric calls it (one batch of crops and one of phrases an image)
+        t0 = time.perf_counter()
+        judge = CLIPJudge(generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+        densify_(judge, 40)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        judge_init_s = time.perf_counter() - t0
+        samples = [(imgs[n], metas[n]["locations"], metas[n]["phrases"]) for n in names]
+        n_crops = sum(c.size > 0 for img, locs, _ in samples for c in ab.crop_instances(img, locs))
+        feats = []
+
+        def kept(encode):
+            return lambda items: feats.append(encode(items)) or feats[-1]
+
+        ab.attribute_binding_eval(samples[:1], "colors", judge.encode_images,
+                                  judge.encode_texts)  # warm-up
+        t0 = time.perf_counter()
+        scores = ab.attribute_binding_eval(samples, "colors", kept(judge.encode_images),
+                                           kept(judge.encode_texts))
+        crop_s = (time.perf_counter() - t0) / n_crops
+        feats = np.concatenate(feats)
+        norms = np.linalg.norm(feats, axis=-1)
+        if not (np.isfinite(feats).all() and norms.min() > 0
+                and np.abs(np.linalg.norm(feats / norms[:, None], axis=-1) - 1).max() < 1e-5):
+            raise RuntimeError("eval: judge features not finite, zero or not unit after "
+                               "normalising")
+        timings = res["last_timings"][0]
+        line = (f"eval: coco_eval.main ({len(names)} JPEGs of {len(EVAL_IMAGES)} COCO images, "
+                f"mask preset, 50-step PLMS, alpha {EVAL_ALPHA}, batch {N_IMAGES}, bf16, "
+                f"colours) {res['seconds']:.3f}s = {res['s_per_image']:.4f} s/image on {card} "
+                f"(metas {res['seconds'] - sum(res['batch_s']):.3f}s, batch "
+                f"{res['batch_s'][0]:.3f}s; JPEG encode {jpeg_ms:.2f} ms per 512x512 "
+                f"image on the host; last_timings "
+                f"{ {k: round(v, 4) for k, v in timings.items()} }); UNet forwards "
+                f"{n1} gate-1 + {n0} gate-0 at B={rows}, each as the plan gives "
+                f"({plan[1]} / {plan[0]}), one B={N_IMAGES} decode ({decode_plan}), "
+                f"{len(encodes)} text encodes ({encode_plan} each), {len(tokenizes)} UniFusion "
+                f"tokenizations ({tokens_plan} each); launches {launches}, "
+                f"{n_unfused} unfused FF calls; the slice request (alpha 0.75: {s1} + {s0} "
+                f"forwards) launched the plan's {slice_plan}; PiM point {pim_point:.4f} (the "
+                f"share of GT masks holding their own bbox center) scribble "
+                f"{pim_scribble:.4f} (GT masks as predictions); judge ViT-L/14 fp32 init "
+                f"{judge_init_s:.2f}s, attribute_binding_eval on {n_crops} crops "
+                f"{crop_s * 1e3:.2f} ms/crop ({len(feats)} features, finite and unit after "
+                f"normalising), clip_score {scores['clip_score']:.4f} accuracy "
+                f"{scores['accuracy']:.4f} (random weights: not gated); phase "
+                f"{time.perf_counter() - t_phase:.1f}s")
+        return line, launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_datagen(torch, dev, card: str, ckpt: str) -> tuple[str, dict]:
+    """Training-data generation on the port: an oracle COCO JSON over the
+    fixture JPEGs, `datagen.label.main` with --ckpt (ClipPhraseEmbedder on
+    the card) and --write_train_txt, then
+    `datagen.coco_to_training_jsons.main` over the same JSON and images;
+    both outputs read back through JsonDataset / SampleDecoder (a B=4
+    batch each). Records/s, phrases/s, record bytes; the CLIP text encodes'
+    LayerNorm launches held to 25 an encode (12 layers x 2 + the final)."""
+    import numpy as np
+
+    from instancediffusion_tpu_torch import kernels
+    from instancediffusion_tpu_torch.data import _native
+    from instancediffusion_tpu_torch.data.jsondataset import JsonDataset, SampleDecoder
+    from instancediffusion_tpu_torch.datagen import coco_to_training_jsons, label
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
+
+    from instancediffusion_tpu_torch.datagen.backends import ClipPhraseEmbedder
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_datagen_")
+    encodes, loads = [], []
+    orig, orig_init = InstanceDiffusionPipeline.encode_phrases, ClipPhraseEmbedder.__init__
+
+    def counted(self, phrases):
+        encodes.append(len(phrases))
+        return orig(self, phrases)
+
+    def timed_init(self, *a, **kw):
+        t0 = time.perf_counter()
+        orig_init(self, *a, **kw)
+        loads.append(time.perf_counter() - t0)
+
+    try:
+        images = []
+        for name in fixture_jpegs():
+            with open(os.path.join(FIXTURE_DIR, name), "rb") as f:
+                w, h, _, _ = _native.jpeg_info(f.read())
+            images.append((name, w, h))
+        inst, _ = write_synthetic_coco(work, images, seed=1, empty_last=False)
+        entries = os.path.join(work, "entries.json")
+        with open(entries, "w") as f:
+            json.dump([{"image": os.path.join(FIXTURE_DIR, n), "caption": f"scene {i}"}
+                       for i, (n, _, _) in enumerate(images)], f)
+        InstanceDiffusionPipeline.encode_phrases = counted
+        ClipPhraseEmbedder.__init__ = timed_init
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        written = label.main(["--train_data_path", entries, "--output_dir",
+                              os.path.join(work, "labels"), "--instances_json", inst,
+                              "--ckpt", ckpt, "--write_train_txt", "--device", dev.type])
+        label_s = time.perf_counter() - t0
+        label_encodes = len(encodes)
+        t0 = time.perf_counter()
+        listing = coco_to_training_jsons.main(["--instances", inst, "--images_dir", FIXTURE_DIR,
+                                               "--out", os.path.join(work, "records"),
+                                               "--ckpt", ckpt, "--device", dev.type])
+        c2t_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if len(written) != len(images) or len(listing) != len(images):
+            raise RuntimeError(f"datagen: {len(written)} labels, {len(listing)} records for "
+                               f"{len(images)} images")
+        ln = launches.get("fused_layer_norm", 0)
+        if ln != 25 * len(encodes) or set(launches) - {"fused_layer_norm"}:
+            raise RuntimeError(f"datagen: launches {launches} for {len(encodes)} CLIP encodes "
+                               f"(25 LayerNorms each)")
+        n_phr, sizes = 0, []
+        for path in written:
+            with open(path) as f:
+                rec = json.load(f)
+            n_phr += len(rec["annos"]) + sum(1 for a in rec["annos"] if a["caption"])
+            sizes.append(os.path.getsize(path))
+            for a in rec["annos"]:
+                emb = np.frombuffer(__import__("base64").b64decode(a["text_embedding_before"]),
+                                    np.float32)
+                if emb.shape != (768,) or not np.isfinite(emb).all() or not emb.any():
+                    raise RuntimeError(f"datagen: bad embedding in {path}")
+        batches = []
+        for txt in (os.path.join(work, "labels", "train.txt"),
+                    os.path.join(work, "records", "train.txt")):
+            ds = JsonDataset(txt, SampleDecoder(image_size=512, max_boxes_per_data=30))
+            items = [ds[i] for i in range(4)]
+            if any(it["image"].shape != (512, 512, 3) or int(it["text_masks"].sum()) <= 0
+                   for it in items):
+                raise RuntimeError(f"datagen: {txt} does not decode into a B=4 batch")
+            batches.append(len(items))
+        work_s = label_s - loads[0]
+        line = (f"datagen: label.main on {len(images)} fixture JPEGs (oracle backend, "
+                f"ClipPhraseEmbedder bf16 on {card}) {label_s:.2f}s, of it the checkpoint "
+                f"load {loads[0]:.2f}s: {len(written) / work_s:.3f} records/s past the load "
+                f"({len(written) / label_s:.3f} with it), {n_phr} phrases ({n_phr / work_s:.2f} "
+                f"phrases/s, {label_encodes} batched encodes), record bytes mean "
+                f"{np.mean(sizes):.0f} max {max(sizes)}; coco_to_training_jsons "
+                f"{len(listing)} records in {c2t_s:.2f}s, load {loads[1]:.2f}s "
+                f"({len(listing) / (c2t_s - loads[1]):.3f} records/s past it); JsonDataset B=4 "
+                f"batches from both; launches {launches} ({len(encodes)} encodes); phase "
+                f"{time.perf_counter() - t_phase:.1f}s")
+        return line, launches
+    finally:
+        InstanceDiffusionPipeline.encode_phrases = orig
+        ClipPhraseEmbedder.__init__ = orig_init
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2513,6 +3003,14 @@ def main() -> int:
         torch.save(ckpt_io.reference_state_dict(pipe.unet, pipe.vae, pipe.clip), trainer_ckpt)
         del pipe, mpipe
         torch.cuda.empty_cache()
+
+        # the COCO evaluation and the training-data generation, from that file
+        line, launches_eval = phase_eval(torch, dev, card, trainer_ckpt, launches_plain)
+        log(line)
+        torch.cuda.empty_cache()
+        line, launches_datagen = phase_datagen(torch, dev, card, trainer_ckpt)
+        log(line)
+        torch.cuda.empty_cache()
         line, launches_resume = phase_resume(torch, dev, card)
         log(line)
         torch.cuda.empty_cache()
@@ -2538,7 +3036,8 @@ def main() -> int:
                    "train": launches_train.get(name, 0),
                    "train_masked": launches_masked.get(name, 0),
                    "trainer": launches_trainer.get(name, 0),
-                   "refiner": launches_refiner.get(name, 0)}
+                   "refiner": launches_refiner.get(name, 0),
+                   "eval": launches_eval.get(name, 0), "datagen": launches_datagen.get(name, 0)}
         entry = {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

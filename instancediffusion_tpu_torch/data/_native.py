@@ -1,9 +1,11 @@
 """ctypes bindings for the port's native data library (counterpart of
 `instancediffusion_tpu/data/_native.py`): `native/dataops.cpp` (COCO RLE,
 box rasters, image normalisation; copied from the JAX package's
-`native/`), `native/jpeg.cpp` (the JPEG decoder), `native/resample.cpp`
-(PIL's resize passes) and `native/contours.cpp` (border following and
-interior polygon points).
+`native/`), `native/jpeg.cpp` (the JPEG decoder), `native/jpeg_encode.cpp`
+(the JPEG encoder), `native/resample.cpp` (PIL's resize passes and
+OpenCV's INTER_CUBIC),
+`native/contours.cpp` (border following and interior polygon points) and
+`native/fill_poly.cpp` (cv2.fillPoly).
 
 Nothing is built at import. The first call compiles every
 `instancediffusion_tpu_torch/native/*.cpp` with `g++ -O3 -shared -fPIC`
@@ -43,10 +45,13 @@ _SIGNATURES = {
     "normalize_image": (None, [_P, _I64, _P]),
     "idt_jpeg_info": (_I, [ctypes.c_char_p, _I64, _P, ctypes.c_char_p, _I]),
     "idt_jpeg_decode": (_I, [ctypes.c_char_p, _I64, _P, ctypes.c_char_p, _I]),
+    "idt_jpeg_encode": (_I64, [_P, _I64, _I64, _P, _I64]),
     "idt_find_contours": (_I64, [_P, _I64, _I64, _P, _I64, _P, _I64]),
     "idt_uniform_sparse_points": (_I64, [_P, _I64, _I64, _I64, _P]),
+    "idt_fill_poly": (None, [_P, _I64, _I64, _P, _P, _I64, _I64]),
     "idt_resample_h": (None, [_P, _I64, _I64, _I64, _P, _P, _I64, _I64, _P]),
     "idt_resample_v": (None, [_P, _I64, _P, _P, _I64, _I64, _P]),
+    "idt_resize_cubic": (None, [_P, _I64, _I64, _I64, _P, _P, _I64, _P, _P, _I64, _P]),
 }
 
 
@@ -149,6 +154,21 @@ def jpeg_decode(data: bytes) -> np.ndarray:
     return out
 
 
+def jpeg_encode(rgb: np.ndarray) -> bytes:
+    """The bytes Pillow writes for an (H, W, 3) uint8 image saved as a
+    default JPEG (`native/jpeg_encode.cpp`)."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    h, w = rgb.shape[:2]
+    cap = h * w * 2 + 2048
+    for _ in range(2):
+        buf = ctypes.create_string_buffer(cap)
+        n = get_lib().idt_jpeg_encode(rgb.ctypes.data, h, w, ctypes.addressof(buf), cap)
+        if n >= 0:
+            return buf.raw[:n]
+        cap = -n
+    raise RuntimeError("idt_jpeg_encode: output buffer too small after resizing")
+
+
 def find_contours_native(mask: np.ndarray) -> list[np.ndarray]:
     """The borders of a 2-D mask's nonzero pixels as (N, 2) int32 (x, y)
     arrays, in the order `geometry.find_contours_numpy` finds them (it lists
@@ -166,6 +186,19 @@ def find_contours_native(mask: np.ndarray) -> list[np.ndarray]:
             return [points[e - k:e] for e, k in zip(ends.tolist(), lengths[:n].tolist())]
         cap_pts, cap_n = int(lengths[0]), max(int(lengths[1]), 2)
     raise RuntimeError("idt_find_contours: buffers too small after resizing")
+
+
+def fill_poly_native(mask: np.ndarray, polygons, value: int) -> None:
+    """cv2.fillPoly(mask, polygons, value) in place on a C-contiguous (H, W)
+    uint8 mask; polygons: (N, 2) integer (x, y) arrays."""
+    if mask.dtype != np.uint8 or mask.ndim != 2 or not mask.flags.c_contiguous:
+        raise ValueError(f"fill_poly takes a C-contiguous (H, W) uint8 mask, got {mask.dtype} "
+                         f"{mask.shape}")
+    polys = [np.asarray(p, np.int64).reshape(-1, 2) for p in polygons]
+    points = np.ascontiguousarray(np.concatenate(polys) if polys else np.zeros((0, 2), np.int64))
+    counts = np.array([len(p) for p in polys], np.int64)
+    get_lib().idt_fill_poly(mask.ctypes.data, mask.shape[0], mask.shape[1], points.ctypes.data,
+                            counts.ctypes.data, len(polys), int(value))
 
 
 def resample_pass(img: np.ndarray, axis: int, bounds: np.ndarray,
@@ -191,6 +224,21 @@ def resample_pass(img: np.ndarray, axis: int, bounds: np.ndarray,
                            weights.ctypes.data, ksize, n_out, out.ctypes.data)
     else:
         raise ValueError(f"resample_pass: axis {axis}")
+    return out
+
+
+def resize_cubic_native(img: np.ndarray, xofs: np.ndarray, alpha: np.ndarray, yofs: np.ndarray,
+                        beta: np.ndarray) -> np.ndarray:
+    """`geometry.resize_cubic`'s two passes in C++ on (H, W[, C]) uint8 with
+    the taps and weights of `geometry._cubic_coefficients`."""
+    img = np.ascontiguousarray(img, np.uint8)
+    xofs, alpha, yofs, beta = (np.ascontiguousarray(a, np.int64) for a in (xofs, alpha, yofs, beta))
+    h, w = img.shape[:2]
+    ch = img.shape[2] if img.ndim == 3 else 1
+    out = np.empty((len(yofs), len(xofs)) + img.shape[2:], np.uint8)
+    get_lib().idt_resize_cubic(img.ctypes.data, h, w, ch, xofs.ctypes.data, alpha.ctypes.data,
+                               len(xofs), yofs.ctypes.data, beta.ctypes.data, len(yofs),
+                               out.ctypes.data)
     return out
 
 

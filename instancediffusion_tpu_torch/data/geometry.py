@@ -12,6 +12,10 @@ cv2): COCO RLE masks, scribble/polygon point sampling, coordinate rescaling.
     cv2.findContours(RETR_LIST, CHAIN_APPROX_NONE) (Suzuki and Abe), the
     same points in the same order, behind mask_boundary_points
   * resize_nearest: cv2.resize(..., INTER_NEAREST)'s index rule
+  * fill_poly: cv2.fillPoly on integer vertices (the native library's
+    `native/fill_poly.cpp`), which rasterises COCO polygon segmentations
+  * resize_cubic: OpenCV's own cv2.resize(..., INTER_CUBIC) on uint8 (see
+    its docstring for the one route of cv2 it does not follow)
 
 All random sampling takes an explicit np.random.Generator for determinism."""
 
@@ -238,6 +242,59 @@ def resize_nearest(img: np.ndarray, width: int, height: int) -> np.ndarray:
     ys = np.minimum(np.floor(np.arange(height) * (1.0 / (height / h))).astype(np.int64), h - 1)
     xs = np.minimum(np.floor(np.arange(width) * (1.0 / (width / w))).astype(np.int64), w - 1)
     return img[ys][:, xs]
+
+
+def fill_poly(mask: np.ndarray, polygons, value: int = 1) -> np.ndarray:
+    """cv2.fillPoly(mask, polygons, value) (shift 0, LINE_8): every polygon,
+    an (N, 2) integer (x, y) array, outlined with 8-connected lines and
+    filled by even-odd scan lines, all of them in one edge set. Writes into
+    the (H, W) uint8 mask, which must be C-contiguous, and returns it."""
+    from instancediffusion_tpu_torch.data._native import fill_poly_native
+
+    fill_poly_native(mask, polygons, value)
+    return mask
+
+
+def _cubic_coefficients(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
+    """(source indices (dst, 4), 11-bit weights (dst, 4)) of one axis as
+    cv::resize computes them: fx = float32((i + 0.5) * (1 / (dst / src)) -
+    0.5), taps floor(fx) - 1 .. floor(fx) + 2 clamped to the image, Keys'
+    cubic with A = -0.75 in float32, each weight * 2048 rounded to even."""
+    f32 = np.float32
+    fx = ((np.arange(dst) + 0.5) * (1.0 / (float(dst) / src)) - 0.5).astype(f32)
+    sx = np.floor(fx).astype(np.int64)
+    x = (fx - sx.astype(f32)).astype(f32)
+    a, one = f32(-0.75), f32(1.0)
+    c0 = ((a * (x + one) - f32(5) * a) * (x + one) + f32(8) * a) * (x + one) - f32(4) * a
+    c1 = ((a + f32(2)) * x - (a + f32(3))) * x * x + one
+    c2 = ((a + f32(2)) * (one - x) - (a + f32(3))) * (one - x) * (one - x) + one
+    c3 = one - c0 - c1 - c2
+    weights = np.rint(np.stack([c0, c1, c2, c3], -1) * f32(2048)).astype(np.int64)
+    idx = np.clip(sx[:, None] + np.arange(-1, 3)[None, :], 0, src - 1)
+    return idx, weights
+
+
+def resize_cubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """cv2.resize(img, (width, height), interpolation=cv2.INTER_CUBIC) for
+    (H, W) or (H, W, C) uint8, as OpenCV's own resize computes it: a=-0.75
+    taps in 11-bit fixed point (`_cubic_coefficients`), the two passes in
+    the native library (`native/resample.cpp` says how).
+
+    x86 builds of cv2 that carry Intel IPP (the PyPI wheels) resize through
+    IPP instead, in float arithmetic that rounds about one value in 10^4
+    the other way where the exact value is within ~1e-5 of a half; the
+    tests hold this function to cv2 with `cv2.ipp.setUseIPP(False)`."""
+    from instancediffusion_tpu_torch.data._native import resize_cubic_native
+
+    _check_u8(img, "resize_cubic")
+    xi, xw = _cubic_coefficients(img.shape[1], width)
+    yi, yw = _cubic_coefficients(img.shape[0], height)
+    return resize_cubic_native(img, xi, xw, yi, yw)
+
+
+def _check_u8(img: np.ndarray, name: str) -> None:
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"{name} takes (H, W) or (H, W, C) uint8, got {img.dtype} {img.shape}")
 
 
 def sample_uniform_sparse_points(

@@ -1,9 +1,10 @@
 """PIL's `Image.resize` for 8-bit images, bit for bit, in numpy: what the
 training loader's crops need (BOX halving, BICUBIC to the target size,
-NEAREST for instance masks) without an imaging library. The passes run in
-the native library (`resize`); `resize_numpy` is the same in numpy.
+NEAREST for instance masks) and the CLI's `--img2img` (LANCZOS) without an
+imaging library. The passes run in the native library (`resize`);
+`resize_numpy` is the same in numpy.
 
-BOX and BICUBIC follow Pillow's `Resample.c`:
+BOX, BICUBIC and LANCZOS follow Pillow's `Resample.c`:
   * two passes, horizontal then vertical, each rounded to uint8; a pass
     whose size does not change is skipped, and the horizontal pass covers
     only the rows the vertical filter reads
@@ -11,7 +12,8 @@ BOX and BICUBIC follow Pillow's `Resample.c`:
     * max(scale, 1), taps from int(center - support + 0.5) to
     int(center + support + 0.5) clipped to the input, weights
     filter((j - center + 0.5) / max(scale, 1)) normalised by their sum
-    (BOX: 1 on (-0.5, 0.5]; BICUBIC: Keys' cubic with a = -0.5)
+    (BOX: 1 on (-0.5, 0.5]; BICUBIC: Keys' cubic with a = -0.5; LANCZOS:
+    sinc(x) * sinc(x / 3) on [-3, 3))
   * weights fixed to 22 fractional bits, rounded half away from zero;
     sums started at 1 << 21, shifted right by 22 and clipped to 0..255
 NEAREST is Pillow's affine scaling: source index int(x_i), x_0 = in / out / 2,
@@ -25,7 +27,7 @@ import math
 
 import numpy as np
 
-BOX, BICUBIC, NEAREST = "box", "bicubic", "nearest"
+BOX, BICUBIC, LANCZOS, NEAREST = "box", "bicubic", "lanczos", "nearest"
 PRECISION_BITS = 32 - 8 - 2
 
 
@@ -41,7 +43,16 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-_FILTERS = {BOX: (_box, 0.5), BICUBIC: (_bicubic, 2.0)}
+def _sinc(x: np.ndarray) -> np.ndarray:
+    safe = np.where(x == 0.0, 1.0, x * math.pi)
+    return np.where(x == 0.0, 1.0, np.sin(safe) / safe)
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    return np.where((x >= -3.0) & (x < 3.0), _sinc(x) * _sinc(x / 3), 0.0)
+
+
+_FILTERS = {BOX: (_box, 0.5), BICUBIC: (_bicubic, 2.0), LANCZOS: (_lanczos, 3.0)}
 
 
 def coefficients(in_size: int, out_size: int, method: str) -> tuple[np.ndarray, np.ndarray]:
@@ -92,8 +103,8 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
 
 def resize(img: np.ndarray, size: tuple[int, int], method: str) -> np.ndarray:
     """`Image.fromarray(img).resize(size, method)` as an array: img (H, W, 3)
-    or (H, W) uint8, size (width, height) as PIL takes it. The BOX and
-    BICUBIC passes run in the native library (`native/resample.cpp`)."""
+    or (H, W) uint8, size (width, height) as PIL takes it. The BOX, BICUBIC
+    and LANCZOS passes run in the native library (`native/resample.cpp`)."""
     from instancediffusion_tpu_torch.data._native import resample_pass
 
     return _resize(img, size, method, resample_pass)

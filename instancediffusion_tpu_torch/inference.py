@@ -18,9 +18,9 @@ binary masks before sampling scribbles/polygons/segs, so demos exercise
 boxes+points (+explicit scribbles) only. Pass --use_masks to honor the
 JSON's RLE masks.
 
-Differences from the JAX CLI: the box image has the outlines only (no
-phrase or caption text); --img2img reads PNGs and JPEGs already at the
-model's resolution (others raise).
+Difference from the JAX CLI: the box image has the outlines only (no
+phrase or caption text). --img2img reads a PNG or JPEG of any size and
+resizes it with PIL's LANCZOS, as JAX's CLI does.
 
 Usage:
   python -m instancediffusion_tpu_torch.inference --input_json demos/demo_fox_meadow.json \\
@@ -41,6 +41,7 @@ import numpy as np
 
 from instancediffusion_tpu_torch.config import Config, apply_test_preset
 from instancediffusion_tpu_torch.data import geometry as geo
+from instancediffusion_tpu_torch.data import resample
 from instancediffusion_tpu_torch.data.jpeg import decode_image
 from instancediffusion_tpu_torch.io.png import png_bytes
 
@@ -143,15 +144,12 @@ def _write_png(path: str, img: np.ndarray) -> None:
 
 
 def read_image(path: str, size: int) -> np.ndarray:
-    """A PNG or JPEG at size x size as (size, size, 3) uint8 RGB
-    (`data/jpeg.decode_image`). Other sizes raise: JAX's LANCZOS resize
-    has no counterpart here."""
+    """A PNG or JPEG as (size, size, 3) uint8 RGB (`data/jpeg.decode_image`),
+    resized with PIL's LANCZOS as JAX's CLI resizes it
+    (`data/resample.resize`)."""
     with open(path, "rb") as f:
         img = decode_image(f.read())
-    if img.shape[:2] != (size, size):
-        raise ValueError(f"--img2img {path} is {img.shape[1]}x{img.shape[0]}; this "
-                         f"configuration needs a {size}x{size} image")
-    return img
+    return resample.resize(img, (size, size), resample.LANCZOS)
 
 
 def main(argv=None) -> list[str]:

@@ -1,7 +1,9 @@
 """Fill the port's parameters from the JAX package's parameter trees.
 
-The JAX `PipelineParams` trees (`unet`, `vae`, `clip`) and `RefinerParams`
-trees (`unet`: the SDXL refiner's, `vae`, `text`: OpenCLIP-bigG) are nested
+The JAX `PipelineParams` trees (`unet`, `vae`, `clip`), `RefinerParams`
+trees (`unet`: the SDXL refiner's, `vae`, `text`: OpenCLIP-bigG) and the
+attribute-binding judge's trees (`vision`: the CLIP ViT tower, `text`,
+`text_projection`: what `convert_clip_model` returns) are nested
 dicts and lists whose leaves are arrays (numpy, or anything `np.asarray` reads). The
 port's modules mirror those trees key for key, so loading is a walk of both
 at once:
@@ -76,13 +78,18 @@ def _load_module(module: torch.nn.Module, tree) -> None:
                        f"{' ...' if len(missing) > 10 else ''}")
 
 
-def load_jax_params(pipe_or_module, unet=None, vae=None, clip=None, text=None) -> None:
+def load_jax_params(pipe_or_module, unet=None, vae=None, clip=None, text=None, vision=None,
+                    text_projection=None) -> None:
     """Copy JAX parameter trees into a pipeline's `unet`/`vae`/`clip` (the
-    refiner pipeline's `unet`/`vae`/`text`) modules, or (with exactly one
-    tree given) into one module."""
-    given = {k: t for k, t in (("unet", unet), ("vae", vae), ("clip", clip), ("text", text))
+    refiner pipeline's `unet`/`vae`/`text`, the CLIP judge's
+    `vision`/`text`/`text_projection`) modules, or (with exactly one tree
+    given, named for no submodule of it) into one module."""
+    given = {k: t for k, t in (("unet", unet), ("vae", vae), ("clip", clip), ("text", text),
+                               ("vision", vision), ("text_projection", text_projection))
              if t is not None}
-    if isinstance(pipe_or_module, torch.nn.Module):
+    holds_them = all(isinstance(getattr(pipe_or_module, n, None), torch.nn.Module)
+                     for n in given)
+    if isinstance(pipe_or_module, torch.nn.Module) and not holds_them:
         if len(given) != 1:
             raise ValueError("loading into one module takes exactly one tree")
         _load_module(pipe_or_module, next(iter(given.values())))

@@ -1,8 +1,9 @@
 """Convert reference (PyTorch) state dicts into the JAX-layout numpy trees
 that `io/jax_params.load_jax_params` reads (counterpart of
 `instancediffusion_tpu/io/torch_convert.py`: the SD1.5 parts, UNet with
-UniFusion and ConvNeXt-T, VAE, CLIP text; and the SDXL refiner's UNet and
-OpenCLIP-bigG text tower).
+UniFusion and ConvNeXt-T, VAE, CLIP text; the CLIP ViT-L/14 vision tower
+and full CLIPModel of the attribute-binding judge; and the SDXL refiner's
+UNet and OpenCLIP-bigG text tower).
 
 Handles the official-checkpoint layout split by key prefix:
     model.diffusion_model.* -> UNet        (convert_unet)
@@ -391,6 +392,57 @@ def convert_clip_text(sd: dict[str, np.ndarray], cfg) -> Params:
             }
         )
     return out
+
+
+# -- CLIP vision tower + full-CLIP ---------------------------------------------
+
+
+def convert_clip_vision(sd: dict[str, np.ndarray], cfg) -> Params:
+    """HF CLIPModel/CLIPVisionModel state dict -> vision tower pytree."""
+    for pre in ("vision_model.", "clip.vision_model.", ""):
+        if pre + "embeddings.patch_embedding.weight" in sd:
+            break
+    else:
+        raise KeyError("CLIP vision keys not found")
+    out: Params = {
+        "patch_embedding": {
+            "w": np.ascontiguousarray(
+                sd[pre + "embeddings.patch_embedding.weight"].transpose(2, 3, 1, 0)
+            )
+        },
+        "class_embedding": sd[pre + "embeddings.class_embedding"],
+        "position_embedding": sd[pre + "embeddings.position_embedding.weight"],
+        "pre_ln": _norm(sd, pre + "pre_layrnorm")
+        if pre + "pre_layrnorm.weight" in sd  # (sic — HF's typo'd key name)
+        else _norm(sd, pre + "pre_layernorm"),
+        "post_ln": _norm(sd, pre + "post_layernorm"),
+        "layers": [],
+    }
+    for i in range(cfg.num_hidden_layers):
+        lp = f"{pre}encoder.layers.{i}"
+        out["layers"].append(
+            {
+                "ln1": _norm(sd, lp + ".layer_norm1"),
+                "q": _lin(sd, lp + ".self_attn.q_proj"),
+                "k": _lin(sd, lp + ".self_attn.k_proj"),
+                "v": _lin(sd, lp + ".self_attn.v_proj"),
+                "out": _lin(sd, lp + ".self_attn.out_proj"),
+                "ln2": _norm(sd, lp + ".layer_norm2"),
+                "fc1": _lin(sd, lp + ".mlp.fc1"),
+                "fc2": _lin(sd, lp + ".mlp.fc2"),
+            }
+        )
+    if "visual_projection.weight" in sd:
+        out["visual_projection"] = _lin(sd, "visual_projection", bias=False)
+    return out
+
+
+def convert_clip_model(sd: dict[str, np.ndarray], text_cfg, vision_cfg):
+    """Full HF CLIPModel -> (vision_params, text_params, text_projection)."""
+    vision = convert_clip_vision(sd, vision_cfg)
+    text = convert_clip_text(sd, text_cfg)
+    text_projection = _lin(sd, "text_projection", bias=False)
+    return vision, text, text_projection
 
 
 # -- UNet ---------------------------------------------------------------------

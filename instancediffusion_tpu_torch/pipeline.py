@@ -156,6 +156,17 @@ class InstanceDiffusionPipeline:
         enc = clip_text.apply_clip_text(self.clip, torch.from_numpy(ids).long().to(self.device))
         return enc["last_hidden_state"], enc["pooler_output"].float()
 
+    @torch.inference_mode()
+    def encode_phrases(self, phrases: list[str]) -> list[np.ndarray]:
+        """The fp32 pooled CLIP feature of each phrase, (D,) numpy arrays, from
+        one batched encode (JAX's `encode_phrases`; the phrase embeddings of
+        the training records). Unlike JAX's, it refuses the hash tokenizer
+        unless IDTPU_ALLOW_HASH_TOKENIZER=1, as every other encode does."""
+        if not phrases:
+            return []
+        pooled = self._encode(list(phrases))[1].cpu().numpy()
+        return [pooled[i] for i in range(len(phrases))]
+
     def _make_schedule(self, sampler: str, steps: int, alpha_type):
         if sampler not in _SAMPLERS:
             raise ValueError(f"unknown sampler {sampler!r}: expected 'plms' (the reference "

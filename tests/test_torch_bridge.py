@@ -214,6 +214,13 @@ def test_port_import_leaves_jax_out():
         "import instancediffusion_tpu_torch.utils.logging\n"
         "import instancediffusion_tpu_torch.pipeline_refiner\n"
         "import instancediffusion_tpu_torch.models.sdxl_refiner\n"
+        "import instancediffusion_tpu_torch.models.clip_vision\n"
+        "import instancediffusion_tpu_torch.evalsuite.coco_eval\n"
+        "import instancediffusion_tpu_torch.evalsuite.pim\n"
+        "import instancediffusion_tpu_torch.evalsuite.attribute_binding\n"
+        "import instancediffusion_tpu_torch.datagen.backends\n"
+        "import instancediffusion_tpu_torch.datagen.label\n"
+        "import instancediffusion_tpu_torch.datagen.coco_to_training_jsons\n"
         "banned = ('jax', 'instancediffusion_tpu', 'PIL', 'cv2', 'safetensors')\n"
         "mods = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not mods, mods\n"

@@ -1022,3 +1022,46 @@ def test_trainer_on_card(dev, tmp_path, monkeypatch):
                  "fused_ff_geglu"):
         assert stats["launches_per_step"].get(name, 0) > 0, (name, stats["launches_per_step"])
     assert (tmp_path / "OUTPUT" / "test" / "tag00" / "checkpoint_latest").exists()
+
+
+@pytest.mark.cuda
+def test_clip_judge_on_card_equals_cpu(dev, monkeypatch):
+    """CLIPJudge on the card (float32, plain routes) against the same judge
+    on the CPU: image and text features within 1e-4 * max |x| (TF32 off)."""
+    import numpy as np
+
+    from instancediffusion_tpu_torch.config import TextEncoderConfig
+    from instancediffusion_tpu_torch.models import clip_vision as cv
+
+    monkeypatch.setenv("IDTPU_ALLOW_HASH_TOKENIZER", "1")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    vcfg = cv.VisionConfig(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                           num_attention_heads=4, projection_dim=32)
+    tcfg = TextEncoderConfig(vocab_size=512, hidden_size=64, intermediate_size=128,
+                             num_hidden_layers=2, num_attention_heads=4)
+    cpu = cv.CLIPJudge(vcfg, tcfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = cv.CLIPJudge(vcfg, tcfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    crop = np.random.default_rng(0).integers(0, 256, (90, 130, 3), np.uint8)
+    for a, b in ((card.encode_images([crop]), cpu.encode_images([crop])),
+                 (card.encode_texts(["a red kite"]), cpu.encode_texts(["a red kite"]))):
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+
+
+@pytest.mark.cuda
+def test_encode_phrases_on_card(dev, monkeypatch):
+    """encode_phrases on the card's bf16 pipeline: fp32 (D,) features, finite,
+    one per phrase, the same for a phrase alone or in a batch (within bf16)."""
+    import numpy as np
+
+    from instancediffusion_tpu_torch.config import Config
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
+
+    monkeypatch.setenv("IDTPU_ALLOW_HASH_TOKENIZER", "1")
+    pipe = InstanceDiffusionPipeline.random_init(Config(), seed=0, device=dev)
+    out = pipe.encode_phrases(["a dog", "a red kite in the sky", "bench"])
+    assert len(out) == 3 and all(e.shape == (768,) and e.dtype == np.float32 for e in out)
+    assert all(np.isfinite(e).all() for e in out)
+    alone = pipe.encode_phrases(["bench"])[0]
+    assert np.abs(alone - out[2]).max() <= 2e-2 * np.abs(out[2]).max()

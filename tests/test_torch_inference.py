@@ -411,8 +411,8 @@ def test_cli_matches_jax_end_to_end(cli_files, tmp_path, monkeypatch):
 
 def test_cli_img2img_and_refused_options(tmp_path, monkeypatch):
     """--img2img reads a PNG at the model's resolution and writes its
-    edits; another size raises naming the resolution. (--cascade_strength
-    runs the refiner: tests/test_torch_refiner.py.)"""
+    edits; an image of another size is resized to the resolution with PIL's
+    LANCZOS (it was refused before the port had LANCZOS)."""
     cfg = port_config(cli_config())
     monkeypatch.setenv("IDTPU_ALLOW_HASH_TOKENIZER", "1")
     monkeypatch.setattr(pinf, "Config", lambda: cfg)
@@ -424,9 +424,57 @@ def test_cli_img2img_and_refused_options(tmp_path, monkeypatch):
     paths = pinf.main(base + ["--img2img", str(tmp_path / "in.png"), "--strength", "0.5"])
     img = read_png((tmp_path / "out" / "gc7.5-seed0-alpha0.75" / "0.png").read_bytes())
     assert len(paths) == 1 and img.shape == (16, 16, 3)
-    (tmp_path / "big.png").write_bytes(png_bytes(np.zeros((24, 16, 3), np.uint8)))
-    with pytest.raises(ValueError, match="16x16"):
-        pinf.main(base + ["--img2img", str(tmp_path / "big.png")])
+    big = np.random.default_rng(1).integers(0, 256, (24, 16, 3), np.uint8)
+    (tmp_path / "big.png").write_bytes(png_bytes(big))
+    np.testing.assert_array_equal(
+        pinf.read_image(str(tmp_path / "big.png"), 16),
+        np.asarray(Image.fromarray(big).resize((16, 16), Image.LANCZOS)))
+    paths = pinf.main(base + ["--img2img", str(tmp_path / "big.png"), "--output",
+                              str(tmp_path / "out_big")])
+    assert len(paths) == 1
+
+
+class _Captured(Exception):
+    pass
+
+
+def test_cli_img2img_resizes_a_jpeg_as_jax(tmp_path, monkeypatch):
+    """--img2img with a 40x27 JPEG: the port's CLI hands img2img exactly the
+    array JAX's CLI hands it (PIL's decode and LANCZOS resize to the model's
+    resolution); img2img itself is held to JAX's in test_torch_pipeline.py."""
+    cfg = cli_config()
+    monkeypatch.setenv("IDTPU_ALLOW_HASH_TOKENIZER", "1")
+    monkeypatch.setattr(jinf, "Config", lambda: cfg)
+    monkeypatch.setattr(pinf, "Config", lambda: port_config(cfg))
+    y, x = np.mgrid[0:27, 0:40]
+    src = np.stack([x * 6, y * 9, (x * y) % 256], -1).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(src).save(buf, format="JPEG", quality=90)
+    (tmp_path / "in.jpg").write_bytes(buf.getvalue())
+    got = {}
+
+    def capture(name):
+        def img2img(self, image, meta, **kw):
+            got[name] = np.array(image)
+            raise _Captured
+        return img2img
+
+    monkeypatch.setattr(JaxPipeline, "img2img", capture("jax"))
+    monkeypatch.setattr(InstanceDiffusionPipeline, "img2img", capture("port"))
+    # JAX's jitted init is most of a minute here, and img2img gets no weights
+    monkeypatch.setattr(JaxPipeline, "random_init",
+                        classmethod(lambda cls, cfg, seed=0: object.__new__(cls)))
+    demo = os.path.join(REPO, "demos", "demo_kitchen_cat.json")
+    args = ["--input_json", demo, "--steps", "4", "--num_images", "1",
+            "--img2img", str(tmp_path / "in.jpg")]
+    with pytest.raises(_Captured):
+        jinf.main(args + ["--output", str(tmp_path / "jax")])
+    with pytest.raises(_Captured):
+        pinf.main(args + ["--output", str(tmp_path / "port"), "--device", "cpu"])
+    res = cfg.model.image_size * 2 ** (len(cfg.autoencoder.ch_mult) - 1)
+    assert got["port"].shape == got["jax"].shape == (res, res, 3)
+    assert got["port"].dtype == got["jax"].dtype == np.uint8
+    np.testing.assert_array_equal(got["port"], got["jax"])
 
 
 @pytest.mark.parametrize("exists", [True, False])

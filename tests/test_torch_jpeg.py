@@ -1,10 +1,12 @@
-"""The port's image decoding and resampling against PIL, bit for bit, and
-its native data library against its numpy versions (CPU).
+"""The port's image decoding, encoding and resampling against PIL, bit for
+bit, its polygon fill and cubic resize against cv2, and its native data
+library against its numpy versions (CPU).
 
 PIL (Pillow with libjpeg-turbo) is the oracle: `data/jpeg.decode_image`
-must return exactly `Image.open(BytesIO(b)).convert("RGB")`, and
-`data/resample.resize` exactly `Image.resize` with BOX, BICUBIC and
-NEAREST. The committed fixtures (tools/make_torch_jpeg_fixtures.py) carry
+must return exactly `Image.open(BytesIO(b)).convert("RGB")`,
+`data/jpeg.encode_jpeg` the bytes of Pillow's default JPEG save, and
+`data/resample.resize` exactly `Image.resize` with BOX, BICUBIC, LANCZOS
+and NEAREST. The committed fixtures (tools/make_torch_jpeg_fixtures.py) carry
 PIL's hashes for the card host, which has no PIL.
 """
 
@@ -21,10 +23,11 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 from PIL import Image
 
+import chip_smoke
 from instancediffusion_tpu_torch.data import _native
 from instancediffusion_tpu_torch.data import geometry as pgeo
 from instancediffusion_tpu_torch.data import resample
-from instancediffusion_tpu_torch.data.jpeg import decode_image
+from instancediffusion_tpu_torch.data.jpeg import decode_image, encode_jpeg, encode_jpeg_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "torch_fixtures", "jpeg")
@@ -415,3 +418,151 @@ def test_sampling_layouts_decode_as_pil(layout, size):
     w, h = size
     data = _baseline_jpeg(np.asarray(_scene(w, h, 8)), **LAYOUTS[layout])
     np.testing.assert_array_equal(decode_image(data), _pil_rgb(data))
+
+
+# -- the JPEG encoder ----------------------------------------------------------
+
+
+def _pil_jpeg(img: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(img).convert("RGB").save(buf, format="JPEG")
+    return buf.getvalue()
+
+
+def _content(r, h: int, w: int, kind: str) -> np.ndarray:
+    if kind == "noise":
+        return r.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    if kind == "flat":
+        return np.broadcast_to(r.integers(0, 256, 3, dtype=np.uint8), (h, w, 3)).copy()
+    y, x = np.mgrid[0:h, 0:w]  # a gradient with a few saturated blocks
+    img = np.stack([x * 255 // max(w - 1, 1), y * 255 // max(h - 1, 1), (x + y) % 256], -1)
+    img[r.random((h, w)) < 0.05] = 255
+    return img.astype(np.uint8)
+
+
+@settings(max_examples=100, deadline=None, derandomize=True)
+@given(w=st.integers(1, 70), h=st.integers(1, 70),
+       kind=st.sampled_from(["noise", "flat", "gradient"]), seed=st.integers(0, 2**16))
+def test_encode_jpeg_equals_pil(w, h, kind, seed):
+    """encode_jpeg writes Pillow's default JPEG (quality 75, 4:2:0) byte for
+    byte: odd sizes (partial MCUs, dummy blocks), flat and noisy content;
+    the numpy encoder writes the same bytes."""
+    img = _content(np.random.default_rng(seed), h, w, kind)
+    want = _pil_jpeg(img)
+    assert encode_jpeg(img) == want
+    assert encode_jpeg_numpy(img) == want
+
+
+def test_encode_jpeg_of_generated_images_equals_pil():
+    """The 512x512 images of a tiny pipeline (32x32 latents, a VAE of five
+    levels of 32 channels, 2 PLMS steps, float32 on the CPU), as the COCO
+    eval and the labeler write them."""
+    import dataclasses
+
+    import torch
+
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
+
+    from tests.test_pipeline import META, tiny_config
+    from tests.test_torch_bridge import port_config
+
+    cfg = port_config(tiny_config())
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, image_size=32),
+        autoencoder=dataclasses.replace(cfg.autoencoder, ch_mult=(1,) * 5, resolution=512))
+    pipe = InstanceDiffusionPipeline.random_init(cfg, seed=0, device="cpu", dtype=torch.float32)
+    imgs = pipe.generate(dict(META, segs=None), num_images=2, steps=2, mis=0.0)
+    assert imgs.shape == (2, 512, 512, 3) and int(imgs.max()) - int(imgs.min()) > 10
+    for img in imgs:
+        assert encode_jpeg(img) == _pil_jpeg(img)
+
+
+def test_encode_jpeg_refuses_other_layouts(tmp_path, monkeypatch):
+    """Only (H, W, 3) uint8; a library that does not build raises."""
+    for bad in (np.zeros((4, 4), np.uint8), np.zeros((4, 4, 3), np.float32),
+                np.zeros((0, 4, 3), np.uint8)):
+        with pytest.raises(ValueError, match="uint8"):
+            encode_jpeg(bad)
+    monkeypatch.setattr(_native, "BUILD_ROOT", tmp_path / "native")
+    monkeypatch.setattr(_native, "_LIB", None)
+    monkeypatch.setenv("CXX", "false")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        encode_jpeg(np.zeros((8, 8, 3), np.uint8))
+
+
+# -- LANCZOS, fillPoly and INTER_CUBIC -------------------------------------------
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(w=st.integers(1, 120), h=st.integers(1, 120), ow=st.integers(1, 200),
+       oh=st.integers(1, 200), gray=st.booleans(), seed=st.integers(0, 2**16))
+def test_lanczos_resize_equals_pil(w, h, ow, oh, gray, seed):
+    """LANCZOS (Resample.c's lanczos_filter, support 3) up and down on RGB
+    and L: PIL's bytes exactly, native and numpy passes alike."""
+    r = np.random.default_rng(seed)
+    img = r.integers(0, 256, (h, w) if gray else (h, w, 3), dtype=np.uint8)
+    want = np.asarray(Image.fromarray(img).resize((ow, oh), Image.LANCZOS))
+    np.testing.assert_array_equal(resample.resize(img, (ow, oh), resample.LANCZOS), want)
+    np.testing.assert_array_equal(resample.resize_numpy(img, (ow, oh), resample.LANCZOS), want)
+
+
+@st.composite
+def _polygons(draw):
+    """1-3 polygons of 1-12 integer vertices, up to 40 px off a (1-60)^2
+    image on every side (self-intersecting as they come)."""
+    h, w = draw(st.integers(1, 60)), draw(st.integers(1, 60))
+    polys = []
+    for _ in range(draw(st.integers(1, 3))):
+        n = draw(st.integers(1, 12))
+        xs = draw(st.lists(st.integers(-40, w + 40), min_size=n, max_size=n))
+        ys = draw(st.lists(st.integers(-40, h + 40), min_size=n, max_size=n))
+        polys.append(np.stack([xs, ys], 1).astype(np.int32))
+    return h, w, polys
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(case=_polygons())
+def test_fill_poly_equals_cv2(case):
+    """fill_poly is cv2.fillPoly(mask, polygons, 1) bit for bit: several
+    parts in one call, crossing edges, vertices off the image."""
+    import cv2
+
+    h, w, polys = case
+    want = np.zeros((h, w), np.uint8)
+    cv2.fillPoly(want, polys, 1)
+    np.testing.assert_array_equal(pgeo.fill_poly(np.zeros((h, w), np.uint8), polys), want)
+
+
+def test_fill_poly_of_coco_polygons_equals_cv2():
+    """COCO-like polygons (float vertices rounded, some on the far border,
+    hundreds of vertices) on COCO-sized masks, one cv2 call each."""
+    import cv2
+
+    r = np.random.default_rng(6)
+    for w, h in ((640, 480), (480, 640), (500, 375), (333, 251)):
+        for _ in range(20):
+            pts = np.round(np.reshape(chip_smoke._coco_polygon(r, w, h), (-1, 2))).astype(np.int32)
+            want = np.zeros((h, w), np.uint8)
+            cv2.fillPoly(want, [pts], 1)
+            np.testing.assert_array_equal(pgeo.fill_poly(np.zeros((h, w), np.uint8), [pts]),
+                                          want)
+
+
+@settings(max_examples=120, deadline=None, derandomize=True)
+@given(w=st.integers(1, 90), h=st.integers(1, 90), ow=st.integers(1, 260),
+       oh=st.integers(1, 260), gray=st.booleans(), seed=st.integers(0, 2**16))
+def test_resize_cubic_equals_cv2(w, h, ow, oh, gray, seed):
+    """resize_cubic is OpenCV's own cv2.resize(..., INTER_CUBIC) on uint8 bit
+    for bit (cv2's Intel IPP route, which
+    rounds some near-half values the other way, off for the comparison)."""
+    import cv2
+
+    img = np.random.default_rng(seed).integers(0, 256, (h, w) if gray else (h, w, 3),
+                                               dtype=np.uint8)
+    old = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(False)
+    try:
+        want = cv2.resize(img, (ow, oh), interpolation=cv2.INTER_CUBIC)
+    finally:
+        cv2.ipp.setUseIPP(old)
+    np.testing.assert_array_equal(pgeo.resize_cubic(img, ow, oh), want)
