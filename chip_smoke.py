@@ -21,7 +21,9 @@ Phases, in order (each prints its lines; any failure exits non-zero):
              beside events around those 20 launches, one wrapper-timed call,
              the library call's device time and the share of the bound;
              and K2, K3, K4, K5 at the SDXL refiner's B=16 shapes (12 heads
-             of 64, GroupNorm up to 3072 channels, C=768 feed-forward)
+             of 64, GroupNorm up to 3072 channels, C=768 feed-forward); and
+             K1, K2, K5 at a tensor-parallel rank's B=16 shapes (4 of the 8
+             heads; FF inner 640 at C=320 and 1280 at C=640, zero down bias)
   grounding  UniFusion in fp32 (ConvNeXt's LayerNorms through the kernel) on
              the slice's layout with random phrase embeddings and instance
              masks, seg tokens kept, kernels vs plain_kernels()
@@ -119,6 +121,17 @@ Phases, in order (each prints its lines; any failure exits non-zero):
              tag00 / tag01 layout, the (2048, 1024) RGB grid and
              captions.txt, launches per step; loader, data wait, s/step,
              samples/s, peak memory, load / save / restore and grid seconds
+  dist       ranks on the one card, each on cuda:0: NCCL at one rank (one
+             all_reduce, one all_gather) and init_distributed refusing two
+             NCCL ranks on one device; the launcher as 2 gloo ranks
+             (--coordinator, Config(), B=2 a rank, 4 steps from the flat
+             SD-form file), ZeRO-1 on then off: s/step, each rank's peak
+             memory, collective calls and bytes per step, the ZeRO-1 drop
+             in peak, the checkpoint resumed by one process;
+             generate_batch(mesh=) with data 2 on 8 of META (DPM-20)
+             against one process's batch of 8; tp_apply_unet
+             with model 2 (B=16, gate 1) against the replicated forward,
+             its 80 all_reduces a forward and their share of its time
 The kernels phase also holds the training kernels (forward with
 log-sum-exp, dq, dk/dv, unlabeled and labeled) against their plain versions
 at the training shapes. Every kernel line gives its time, its plain
@@ -334,6 +347,10 @@ SERVE_B = 8
 SERVE_LAUNCHES = {"flash_attention": 175, "proj_split": 350, "merge_proj": 175}
 SERVE_PATH = PLAIN_PATH + ("proj_split", "merge_proj")
 FUSED_UNET_B = 16
+# tensor parallelism of the dist phase: 2 "model" ranks, 4 of SD1.5's 8
+# heads each
+TP_SIZE = 2
+TP_HEADS = 8 // TP_SIZE
 DS1_ATTENTIONS = 10  # per gate-1 forward: 5 ds1 self-attentions + 5 ds1 fusers
 ONLY_KERNELS_PHASE = {"flash_attention_packed_labeled": "kernels phase only: no path reaches it"}
 
@@ -625,6 +642,7 @@ def _cases(torch, dev):
     cases += _train_cases(torch, dev, randn, case, labels64)
     cases += _main_cases(torch, dev, randn, case)
     cases += _refiner_cases(torch, randn, case)
+    cases += _tp_cases(torch, randn, case)
     return cases
 
 
@@ -634,10 +652,10 @@ def _ff_args(randn, m, c):
             randn(c, inner, std=inner ** -0.5), randn(c, std=0.1))
 
 
-def _ff_work(m, c):
+def _ff_work(m, c, inner=None):
     """FLOPs and bytes of one feed-forward call: both products; x read and
     out written once, both weights and both biases (bf16) read once."""
-    inner = 4 * c
+    inner = 4 * c if inner is None else inner
     return 6 * m * c * inner, 2 * (2 * m * c + 3 * inner * c) + 2 * (2 * inner + c)
 
 
@@ -797,6 +815,53 @@ def _refiner_cases(torch, randn, case):
         cases[-1]["label"] = "refiner " + cases[-1]["label"]
     for cs in cases:
         cs["main"] = cs["refiner"] = True
+    return cases
+
+
+def _tp_cases(torch, randn, case):
+    """K1, K2 and K5 at a tensor-parallel rank's shapes (tp 2 of SD1.5's
+    UNet, B=16): 4 of the 8 heads on ds1's self-attention (4096 keys) and
+    fuser (4280), 4 heads of 80 on ds2's packed self-attention, and the FF's
+    column shard, inner 640 at C=320 and 1280 at C=640 with a zero down bias
+    (the UNet adds it after the all_reduce). Device time as the main cases;
+    reported in the kernels line under `tp_cases`."""
+    import torch.nn.functional as F
+
+    from instancediffusion_tpu_torch.kernels import flash_attention as fa
+    from instancediffusion_tpu_torch.kernels import geglu_ff as ff
+    from instancediffusion_tpu_torch.ops.attention import sdpa_fp32
+
+    b, h = FUSED_UNET_B, TP_HEADS
+    sdpa = F.scaled_dot_product_attention
+    heads = lambda t, c: t.reshape(t.shape[0], t.shape[1], h, c).transpose(1, 2)
+    cases = []
+    for label, m in (("ds1 self 4096x4096", 4096), ("ds1 fuser 4096x4280", 4280)):
+        qh, kh, vh = (heads(randn(b, s, h * 40), 40) for s in (4096, m, m))
+        cases.append(case(
+            "flash_attention", f"tp B={b} {label} {h}x40",
+            lambda qh=qh, kh=kh, vh=vh: fa.flash_attention(qh, kh, vh),
+            lambda qh=qh, kh=kh, vh=vh: sdpa_fp32(qh, kh, vh), BF16_REL_TOL,
+            _attn_work("fwd", b, h, 4096, m, 40),
+            lambda qh=qh, kh=kh, vh=vh: sdpa(qh, kh, vh)))
+    q, k, v = (randn(b, 1024, h * 80) for _ in range(3))
+    cases.append(case(
+        "flash_attention_packed", f"tp B={b} ds2 self 1024x1024 {h}x80",
+        lambda: fa.flash_attention_packed(q, k, v, h),
+        lambda: sdpa_fp32(heads(q, 80), heads(k, 80), heads(v, 80)).transpose(1, 2).reshape(
+            b, 1024, h * 80), BF16_REL_TOL, _attn_work("fwd", b, h, 1024, 1024, 80),
+        lambda: sdpa(heads(q, 80), heads(k, 80), heads(v, 80))))
+    for n, c in FF_KERNEL:
+        inner = 4 * c // TP_SIZE
+        args = (randn(b, n, c), randn(2 * inner, c, std=c ** -0.5), randn(2 * inner, std=0.1),
+                randn(c, inner, std=inner ** -0.5), torch.zeros(c, device=q.device,
+                                                                 dtype=torch.bfloat16))
+        cases.append(case(
+            "fused_ff_geglu", f"tp ({b},{n},{c}) inner={inner} b2=0",
+            lambda args=args: ff.fused_ff_geglu(*args), lambda args=args: ff.ff_geglu_plain(*args),
+            BF16_REL_TOL, _ff_work(b * n, c, inner), lambda args=args: ff.ff_geglu_unfused(*args)))
+        cases[-1]["library_name"] = "unfused route: F.linear, a*gelu(g), F.linear in bf16"
+    for cs in cases:
+        cs["main"] = cs["tp"] = True
     return cases
 
 
@@ -992,12 +1057,16 @@ def phase_kernels(torch, dev) -> dict:
                 if key not in sdpa_bwd_ms:
                     sdpa_bwd_ms[key] = device_ms(torch, fwd_bwd) - device_ms(torch, fwd)
                 lib_ms = sdpa_bwd_ms[key]
-            which = "refiner" if cs.get("refiner") else "main"
+            which = "refiner" if cs.get("refiner") else "tp" if cs.get("tp") else "main"
             extra = ""
-            if cs.get("refiner"):
+            if which != "main":
                 plain_dev_ms = device_ms(torch, plain, reps=3)
                 extra = f" plain_device_ms={plain_dev_ms:.4f}"
-            if f"{which}_device_ms" not in entry:
+            if which == "tp":
+                entry.setdefault("tp_cases", []).append(
+                    {"label": label, "max_abs_err": err, "ms": dev_ms, "plain_ms": plain_dev_ms,
+                     "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+            elif f"{which}_device_ms" not in entry:
                 entry.update({f"{which}_label": label, f"{which}_device_ms": dev_ms,
                               f"{which}_library_ms": lib_ms, f"{which}_bound_ms": bound_ms,
                               f"{which}_bound_by": bound_by})
@@ -2926,6 +2995,409 @@ def phase_trainer(torch, card: str, ckpt: str, train_s_per_step: float) -> tuple
     return line, launches
 
 
+# ---------------------------------------------------------------------------
+# the dist phase: ranks on the one card
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 4  # training steps of each 2-rank run
+DIST_B = 2  # each rank's batch
+DIST_TIMEOUT = 600  # seconds per spawn or launcher run
+DIST_TP_FORWARDS = 3
+# DP images against one process's batch of 8. Every rank computes the whole
+# batch's conditioning and samples 4 rows of it, so its bf16 UNet runs 8
+# rows (with CFG) where one process runs 16, and the kernels' sums differ.
+# One process's own batch of 4 against its batch of 8 read max 14 levels,
+# mean 1.3161 on an H100 (PERF.md section 6); the bounds are twice that.
+DIST_IMAGE_MAX_LEVELS = 28
+DIST_IMAGE_MEAN_LEVELS = 2.64
+ZERO1_STATE_BYTES = 4.43e9  # AdamW moments + EMA of SD1.5's 369 M trainable parameters, fp32
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_main(work, rank, world, port, backend, device, args, out):
+    """A spawned rank: join the group on `device` (gloo, or NCCL), run
+    work(rank, world, *args), put (rank, ok, result or traceback)."""
+    import traceback
+
+    os.environ.setdefault("IDTPU_ALLOW_HASH_TOKENIZER", "1")
+    import torch.distributed as dist
+
+    from instancediffusion_tpu_torch.parallel.mesh import init_distributed
+
+    try:
+        init_distributed(f"127.0.0.1:{port}", world, rank, backend=backend, device=device,
+                         timeout_s=DIST_TIMEOUT)
+        out.put((rank, True, work(rank, world, *args)))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn(work, world: int, backend: str, *args, device: str = "cuda:0") -> list:
+    """work(rank, world, *args) on `world` spawned ranks on `device`; (ok,
+    result or traceback) by rank. Every rank is joined within DIST_TIMEOUT
+    and killed after it."""
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(work, r, world, port, backend, device, args, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + DIST_TIMEOUT
+    try:
+        while len(got) < world:
+            try:
+                rank, ok, res = out.get(timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise RuntimeError(f"dist: {world - len(got)} of {world} ranks gave no result "
+                                   f"in {DIST_TIMEOUT}s") from None
+            got[rank] = (ok, res)
+    finally:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    return [got[r] for r in range(world)]
+
+
+def _collectives_check(rank, world):
+    """One all_reduce and one all_gather of a (1024,) fp32 tensor on cuda:0."""
+    import torch
+    import torch.distributed as dist
+
+    from instancediffusion_tpu_torch import parallel
+
+    t = torch.full((1024,), rank + 1.0, device="cuda:0")
+    t0 = time.perf_counter()
+    parallel.all_reduce(t)
+    outs = [torch.empty_like(t) for _ in range(world)]
+    parallel.all_gather(outs, t)
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "all_reduce": t[0].item(),
+            "all_gather": [o[0].item() for o in outs], "s": time.perf_counter() - t0}
+
+
+def _serve_and_tp(rank, world, ckpt, cfg, seeds, device):
+    """A rank of the serving and TP checks, both over gloo on `device`,
+    the pipeline `cfg` from the smoke's checkpoint file: generate_batch(mesh=) with data 2 on 8 of
+    META (DPM-20, mis 0; a warm-up, then a timed batch), this rank's rows
+    alone without the mesh (rank 0 also all 8 rows), then tp_apply_unet with
+    model 2 on a B=16 gate-1 forward against the replicated forward, timed,
+    with its all_reduces counted and timed."""
+    import numpy as np
+    import torch
+
+    from instancediffusion_tpu_torch import kernels, parallel
+    from instancediffusion_tpu_torch.models import unet as unet_lib
+    from instancediffusion_tpu_torch.parallel import tp
+    from instancediffusion_tpu_torch.parallel.mesh import make_mesh
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline, default_dtype
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    pipe = InstanceDiffusionPipeline.from_checkpoint(ckpt, cfg, device=dev,
+                                                     dtype=default_dtype(dev))
+    metas = [META] * len(seeds)
+    kw = dict(steps=SERVE_STEPS, sampler="dpm", mis=0.0)
+    dp_mesh = make_mesh()
+    pipe.generate_batch(metas, seeds=seeds, mesh=dp_mesh, **kw)
+    kernels.reset_launch_counts()
+    parallel.reset_collective_counts()
+    sync()
+    t0 = time.perf_counter()
+    imgs = pipe.generate_batch(metas, seeds=seeds, mesh=dp_mesh, **kw)
+    dp_s = time.perf_counter() - t0
+    launches = collections.Counter(kernels.LAUNCHES)
+    dp_comm = dict(parallel.COLLECTIVES)
+    rows = slice(rank * len(seeds) // world, (rank + 1) * len(seeds) // world)
+    own = pipe.generate_batch(metas[rows], seeds=seeds[rows], **kw)
+    whole = pipe.generate_batch(metas, seeds=seeds, **kw) if rank == 0 else None
+
+    mcfg = pipe.cfg.model
+    b = FUSED_UNET_B
+    last, pooled = pipe._encode([META["prompt"], *META["phrases"]])
+    objs, _ = pipe._conditioning(pipe._grounding_row(META, pooled[1:]))
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(b, mcfg.image_size, mcfg.image_size, mcfg.in_channels, generator=g,
+                    device=dev).to(pipe.dtype)
+    t = torch.randint(0, 1000, (b,), generator=g, device=dev)
+    ctx, objs = last[:1].expand(b, -1, -1), objs.expand(b, -1, -1)
+    tp_mesh = make_mesh(n_model=TP_SIZE)
+    local = tp.shard_unet(pipe.unet, tp_mesh)
+
+    def timed(fn, n):
+        fn()
+        sync()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            times.append(time.perf_counter() - t0)
+        return out, sorted(times)[len(times) // 2]
+
+    with torch.inference_mode():
+        ref, rep_s = timed(lambda: unet_lib.apply_unet(pipe.unet, mcfg, x, t, ctx,
+                                                       precomputed_objs=objs), DIST_TP_FORWARDS)
+        fwd = lambda: tp.tp_apply_unet(tp_mesh, mcfg, local, x, t, ctx, objs, gate_scale=1.0)
+        fwd()
+        sync()
+        kernels.reset_launch_counts()
+        parallel.reset_collective_counts()
+        out, tp_s = timed(fwd, DIST_TP_FORWARDS)
+        tp_comm = {k: v / (DIST_TP_FORWARDS + 1) for k, v in parallel.COLLECTIVES.items()}
+        launches.update(kernels.LAUNCHES)
+        # the all_reduces' share of one forward: each timed on the host
+        # clock between synchronizes
+        spent = []
+        plain_all_reduce = parallel.all_reduce
+
+        def timed_all_reduce(y, group=None, op=None):
+            sync()
+            t0 = time.perf_counter()
+            plain_all_reduce(y, group=group)
+            sync()
+            spent.append(time.perf_counter() - t0)
+            return y
+
+        parallel.all_reduce = timed_all_reduce
+        try:
+            sync()
+            t0 = time.perf_counter()
+            fwd()
+            sync()
+            sync_s = time.perf_counter() - t0
+        finally:
+            parallel.all_reduce = plain_all_reduce
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    return {"imgs": imgs, "own": own, "whole": whole, "dp_s": dp_s, "dp_comm": dp_comm,
+            "tp_err": err, "tp_scale": scale, "tp_finite": bool(torch.isfinite(out).all()),
+            "rep_s": rep_s, "tp_s": tp_s, "tp_comm": tp_comm, "ar_s": sum(spent),
+            "ar_n": len(spent), "sync_s": sync_s, "launches": dict(launches),
+            "ar_want": tp.all_reduces_per_forward(mcfg, 1.0), "image_size": pipe.image_size,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"
+            else float("nan")}
+
+
+def _launcher_ranks(args: list[str], env: dict, logs: list[str]) -> list[str]:
+    """`python -m instancediffusion_tpu_torch.launch args` as 2 ranks
+    (--coordinator on a free port, --device cuda:0, gloo) started together;
+    their outputs. A rank that exits non-zero raises."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    procs = []
+    try:
+        for r, path in enumerate(logs):
+            cmd = [sys.executable, "-m", "instancediffusion_tpu_torch.launch", *args,
+                   "--coordinator", f"127.0.0.1:{port}", "--num_processes", str(len(logs)),
+                   "--process_id", str(r), "--device", "cuda:0", "--dist_backend", "gloo"]
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(cmd, cwd=root, env=env, stdout=f,
+                                              stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DIST_TIMEOUT
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    outs = []
+    for rc, path in zip(rcs, logs):
+        with open(path) as f:
+            outs.append(f.read())
+        if rc != 0:
+            raise RuntimeError(f"dist: a launcher rank exited {rc}:\n{outs[-1][-3000:]}")
+    return outs
+
+
+def _rank_stats(stdout: str, head: str) -> dict:
+    lines = [l for l in stdout.splitlines() if l.startswith(head)]
+    if len(lines) != 1:
+        raise RuntimeError(f"dist: {len(lines)} '{head}' lines in a rank's output")
+    return json.loads(lines[0][len(head):])
+
+
+def check_serve_tp(ckpt: str, cfg, device: str) -> tuple[list, collections.Counter]:
+    """The dist phase's serving and TP checks on 2 gloo ranks (`_serve_and_tp`)
+    on `device`, the pipeline `cfg` from `ckpt`: (lines, their launches).
+    Raises when a check fails."""
+    seeds = list(range(SERVE_B))
+    ranks = _spawn(_serve_and_tp, 2, "gloo", ckpt, cfg, seeds, device, device=device)
+    bad = [res for ok, res in ranks if not ok]
+    if bad:
+        raise RuntimeError("dist: a serving / TP rank failed:\n" + bad[0])
+    r0, r1 = (res for _, res in ranks)
+    import numpy as np
+
+    # DP against one process's batch of 8, and (the reading behind the
+    # bound) one process's batches of 4 against it
+    whole = np.abs(r0["imgs"].astype(int) - r0["whole"].astype(int))
+    own = np.abs(np.concatenate([r0["own"], r1["own"]]).astype(int) - r0["whole"].astype(int))
+    tp_rel = max(r["tp_err"] / r["tp_scale"] for r in (r0, r1))
+    want_ar = r0["ar_want"]  # from the layer plan: 80 at SD1.5
+    problems = []
+    size = r0["image_size"]
+    if not np.array_equal(r0["imgs"], r1["imgs"]) or r0["imgs"].shape != (SERVE_B, size, size, 3):
+        problems.append(f"DP images differ between the ranks or have shape {r0['imgs'].shape}")
+    if whole.max() > DIST_IMAGE_MAX_LEVELS or whole.mean() > DIST_IMAGE_MEAN_LEVELS:
+        problems.append(f"DP images max {whole.max()} mean {whole.mean():.4f} uint8 levels from "
+                        f"one process's batch of 8 (bounds {DIST_IMAGE_MAX_LEVELS}, "
+                        f"{DIST_IMAGE_MEAN_LEVELS})")
+    if tp_rel > UNET_REL_TOL or not (r0["tp_finite"] and r1["tp_finite"]):
+        problems.append(f"TP forward rel err {tp_rel:.4g} > {UNET_REL_TOL}")
+    if r0["tp_comm"].get("all_reduce") != want_ar or r0["ar_n"] != want_ar:
+        problems.append(f"TP all_reduces per forward {r0['tp_comm']} (expected {want_ar})")
+    if problems:
+        raise RuntimeError("dist: " + "; ".join(problems))
+    launches = collections.Counter(r0["launches"]) + collections.Counter(r1["launches"])
+    lines = []
+    lines.append(
+        f"DP generate_batch data=2, 8 x META DPM-{SERVE_STEPS}: {r0['dp_s']:.3f}s a batch "
+        f"({SERVE_B / r0['dp_s']:.3f} img/s), images equal on both ranks; against one "
+        f"process's batch of 8: max {int(whole.max())} uint8 levels, mean {whole.mean():.4f} "
+        f"(bounds {DIST_IMAGE_MAX_LEVELS}, {DIST_IMAGE_MEAN_LEVELS}; one process's batches "
+        f"of 4 against it: max {int(own.max())}, mean {own.mean():.4f}); collectives "
+        f"{r0['dp_comm']}")
+    lines.append(
+        f"TP data=1 model=2 B={FUSED_UNET_B} gate 1: rel err {tp_rel:.4g} (bound "
+        f"{UNET_REL_TOL}) against the replicated forward; {r0['tp_s']:.4f}s a forward vs "
+        f"replicated {r0['rep_s']:.4f}s; {want_ar} all_reduces a forward "
+        f"({r0['tp_comm'].get('all_reduce_bytes', 0) / 1e6:.1f} MB), "
+        f"{r0['ar_s']:.4f}s of a {r0['sync_s']:.4f}s forward synchronized around each "
+        f"({r0['ar_s'] / r0['sync_s']:.3f} share); rank peak {r0['peak_gib']:.2f} GiB")
+    return lines, launches
+
+
+def phase_dist(torch, card: str, ckpt: str) -> tuple[str, dict]:
+    """Ranks on the one card (every rank --device cuda:0): (1) NCCL at one
+    rank (init_distributed, one all_reduce, one all_gather), and
+    init_distributed refusing NCCL for 2 ranks on one device; (2) the
+    launcher as 2 gloo ranks at full width (Config(), B=2 a rank,
+    DIST_STEPS steps from the smoke's flat SD-form checkpoint over the
+    fixture records), ZeRO-1 on and off: s/step, each rank's peak memory,
+    collective calls and bytes per step; the ZeRO-1 run's checkpoint
+    resumed by one process; (3) generate_batch(mesh=) with data 2 on 8 of
+    META (DPM-20) against one process's batch of 8 (within
+    DIST_IMAGE_MAX_LEVELS and DIST_IMAGE_MEAN_LEVELS); (4) tp_apply_unet with model 2 at B=16
+    against the replicated forward (within UNET_REL_TOL of max |eps|), its
+    all_reduces per forward (the plan's 80) and their share of the
+    forward's time. Returns the line and the launches of (2)-(4)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    # (1) NCCL
+    (ok, one), = _spawn(_collectives_check, 1, "nccl")
+    if not ok or one["backend"] != "nccl" or one["all_reduce"] != 1.0 or \
+            one["all_gather"] != [1.0]:
+        raise RuntimeError(f"dist: NCCL at one rank: {one}")
+    refused = _spawn(_collectives_check, 2, "nccl")
+    if any(ok or "share one GPU" not in res for ok, res in refused):
+        raise RuntimeError(f"dist: NCCL with 2 ranks on one device was not refused: {refused}")
+    log(f"dist: NCCL one rank: all_reduce and all_gather ok in {one['s']:.3f}s; 2 NCCL "
+        "ranks on cuda:0 refused by init_distributed ('" +
+        refused[0][1].strip().splitlines()[-1][:160] + "')")
+
+    # (2) the launcher as 2 ranks, ZeRO-1 on and off; then one process resumes
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    launches: collections.Counter = collections.Counter()
+    try:
+        listing = write_training_records(os.path.join(tmp, "records"), 2 * DIST_B * DIST_STEPS)
+        env = dict(os.environ, IDTPU_ALLOW_HASH_TOKENIZER="1")
+        out = os.path.join(tmp, "OUTPUT")
+        runs = {}
+        for zero1 in (True, False):
+            config = os.path.join(tmp, f"zero1_{zero1}.yaml")
+            with open(config, "w") as f:
+                json.dump({"train": {"n_sample_batches": 0, "workers": 2, "zero1": zero1}}, f)
+            name = f"zero1_{zero1}"
+            t0 = time.perf_counter()
+            outs = _launcher_ranks(
+                ["--yaml_file", config, "--train_list", listing, "--official_ckpt", ckpt,
+                 "--batch_size", str(DIST_B), "--total_iters", str(DIST_STEPS),
+                 "--output_dir", out, "--name", name],
+                env, [os.path.join(tmp, f"{name}_rank{r}.log") for r in range(2)])
+            stats = [_rank_stats(outs[0], "trainer stats: "), _rank_stats(outs[1], "rank 1 stats: ")]
+            runs[zero1] = (time.perf_counter() - t0, stats)
+            for st in stats:
+                for k, v in st["launches_per_step"].items():
+                    launches[k] += round(v * st["steps"])
+        secs, stdout = _run_launcher(
+            ["--yaml_file", os.path.join(tmp, "zero1_True.yaml"), "--train_list", listing,
+             "--official_ckpt", ckpt, "--batch_size", str(2 * DIST_B), "--total_iters",
+             str(DIST_STEPS + 1), "--output_dir", out, "--name", "zero1_True"],
+            env, os.path.join(tmp, "resume.log"))
+        resumed = _trainer_stats(stdout)
+        for k, v in resumed["launches_per_step"].items():
+            launches[k] += round(v * resumed["steps"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    problems = []
+    for zero1, (secs, stats) in runs.items():
+        a, b = stats
+        want = {"all_reduce": 1.0, "all_gather": 1.0} if zero1 else {"all_reduce": 1.0}
+        if a["losses"] != b["losses"] or not all(math.isfinite(x) for x in a["losses"]) \
+                or a["skipped"] or any(st["final_step"] != DIST_STEPS or st["world_size"] != 2
+                                       or st["collective_calls_per_step"] != want
+                                       for st in stats):
+            problems.append(f"zero1={zero1}: losses {a['losses']} / {b['losses']}, stats "
+                            f"{[(st['final_step'], st['world_size'], st['collective_calls_per_step']) for st in stats]}")
+    if "auto-resumed from" not in stdout or f"at step {DIST_STEPS}" not in stdout \
+            or resumed["final_step"] != DIST_STEPS + 1 or resumed["world_size"] != 1:
+        problems.append(f"resume on one process: final step {resumed['final_step']}")
+    if problems:
+        raise RuntimeError("dist: " + "; ".join(problems))
+    peaks = {z: [st["peak_memory_gib"] for st in stats] for z, (_, stats) in runs.items()}
+    drop = max(peaks[False]) - max(peaks[True])
+    train_peaks = {z: [st["train_peak_memory_gib"] for st in stats]
+                   for z, (_, stats) in runs.items()}
+    train_drop = max(train_peaks[False]) - max(train_peaks[True])
+    for zero1, (secs, stats) in runs.items():
+        a = stats[0]
+        log(
+            f"dist: train 2 ranks zero1={zero1}: {secs:.1f}s for both ranks' launchers, "
+            f"{a['step_s']:.4f} s/step (first step {a['first_step_s']:.2f}s), "
+            f"{2 * DIST_B / (a['step_s'] + a['data_wait_s']):.3f} samples/s over both ranks, "
+            f"peak {', '.join(f'{p:.2f}' for p in peaks[zero1])} GiB (rank 0, rank 1; set-up "
+            f"{', '.join('%.2f' % st['init_peak_memory_gib'] for st in stats)}, training "
+            f"{', '.join(f'{p:.2f}' for p in train_peaks[zero1])}); "
+            f"collectives per step {a['collective_calls_per_step']} "
+            f"{a['collective_bytes_per_step'] / 1e9:.3f} GB; losses "
+            + ", ".join("%.4f" % x for x in a["losses"]))
+    log(f"dist: ZeRO-1 per-rank peak drop {drop:.2f} GiB = {drop * 2**30 / 1e9:.2f} GB, "
+        f"training's peak {train_drop:.2f} GiB = {train_drop * 2**30 / 1e9:.2f} GB "
+        f"(expected near (1 - 1/2) x {ZERO1_STATE_BYTES / 1e9:.2f} GB = "
+        f"{ZERO1_STATE_BYTES / 2e9:.2f} GB); resumed on one process at step "
+        f"{DIST_STEPS} in {secs:.1f}s, final step {resumed['final_step']}")
+
+    # (3) + (4) DP serving and TP forwards, 2 gloo ranks
+    from instancediffusion_tpu_torch.config import Config, apply_test_preset
+
+    more, served = check_serve_tp(ckpt, apply_test_preset(Config(), "box"), "cuda:0")
+    for line in more:
+        log("dist: " + line)
+    launches.update(served)
+    line = (f"dist: every check passed in {time.perf_counter() - t_phase:.1f}s on {card}; "
+            f"launches {dict(launches)}")
+    return line, dict(launches)
+
+
 def main() -> int:
     import torch
 
@@ -3022,6 +3494,11 @@ def main() -> int:
         # the training driver: the launcher in a subprocess, then resumed
         line, launches_trainer = phase_trainer(torch, card, trainer_ckpt, train_s_per_step)
         log(line)
+        torch.cuda.empty_cache()
+
+        # ranks on the one card: NCCL, the 2-rank launcher, DP serving, TP
+        line, launches_dist = phase_dist(torch, card, trainer_ckpt)
+        log(line)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
@@ -3037,7 +3514,8 @@ def main() -> int:
                    "train_masked": launches_masked.get(name, 0),
                    "trainer": launches_trainer.get(name, 0),
                    "refiner": launches_refiner.get(name, 0),
-                   "eval": launches_eval.get(name, 0), "datagen": launches_datagen.get(name, 0)}
+                   "eval": launches_eval.get(name, 0), "datagen": launches_datagen.get(name, 0),
+                   "dist": launches_dist.get(name, 0)}
         entry = {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3049,7 +3527,7 @@ def main() -> int:
             "exp_bound_ms", "main_label", "main_device_ms", "main_library_ms", "main_bound_ms",
             "main_bound_by", "main_exp_bound_ms", "refiner_label", "refiner_device_ms",
             "refiner_library_ms", "refiner_plain_ms", "refiner_bound_ms", "refiner_bound_by",
-            "refiner_exp_bound_ms") if k in r})
+            "refiner_exp_bound_ms", "tp_cases") if k in r})
         if name in ONLY_KERNELS_PHASE:
             entry["checked"] = ONLY_KERNELS_PHASE[name]
         kernels_json.append(entry)

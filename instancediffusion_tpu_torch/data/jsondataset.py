@@ -506,6 +506,7 @@ _WORKER_DATASET: JsonDataset | None = None  # a decode process's own dataset
 # a scheduler's preemption signals (Slurm's scancel and --signal=USR1 reach
 # every process of the job) and a terminal's interrupt
 PREEMPT_SIGNALS = (signal.SIGINT, signal.SIGTERM, signal.SIGUSR1)
+CLOSE_WAIT_S = 30.0  # Prefetcher.close: how long the decode processes get to end
 
 
 def _init_worker(dataset: JsonDataset, closing) -> None:
@@ -549,7 +550,8 @@ def _from_worker(sample: dict) -> dict:
 class Prefetcher:
     """Background-thread batch producer: overlaps host JSON/RLE decode with
     device steps (the DataLoader-workers + DistributedSampler role,
-    utils/dataloader.py:6-24). Shards by (host_index, num_hosts).
+    utils/dataloader.py:6-24). Shards by (host_index, num_hosts), every
+    shard giving the same number of batches (`batches_per_epoch`).
 
     Unlike the JAX package's, with workers > 1 the samples decode in that
     many spawned processes, up to two batches ahead (threads would share
@@ -634,20 +636,40 @@ class Prefetcher:
         atexit.register(self.close)
 
     def close(self) -> None:
-        """End the decode processes (a later epoch starts new ones)."""
-        if self._pool is not None:
-            self._closing.value = 1
-            self._pool.terminate()
-            self._pool.join()
-            self._pool = None
-            atexit.unregister(self.close)
+        """End the decode processes (a later epoch starts new ones). The
+        pool's terminate sends each process SIGTERM and waits for it without
+        a bound; now and then one outlives that SIGTERM (seen under load:
+        `Pool.terminate` waiting in its last join), so the wait here is
+        bounded and a process still alive after it is killed."""
+        if self._pool is None:
+            return
+        pool, self._pool = self._pool, None
+        self._closing.value = 1
+        ender = threading.Thread(target=pool.terminate, daemon=True, name="prefetcher-close")
+        ender.start()
+        ender.join(CLOSE_WAIT_S)
+        if ender.is_alive():
+            for proc in list(pool._pool):  # the pool's worker processes
+                if proc.is_alive():
+                    proc.kill()
+            ender.join()
+        pool.join()
+        atexit.unregister(self.close)
+
+    def batches_per_epoch(self) -> int:
+        """The same on every rank: (records // num_hosts) // batch_size. JAX's
+        Prefetcher takes len(its shard) // batch_size, which differs between
+        hosts when the record count is not a multiple of num_hosts (14
+        records at batch 2 over 4 ranks: 2, 2, 1, 1 batches), and a rank that
+        runs out first leaves the others waiting in their next collective."""
+        return (len(self.ds) // self.num_hosts) // self.bs
 
     def epoch(self, epoch: int):
         idxs = np.arange(len(self.ds))
         if self.shuffle:
             np.random.default_rng((self.seed, epoch)).shuffle(idxs)
         idxs = idxs[self.host_index :: self.num_hosts]
-        n_batches = len(idxs) // self.bs
+        n_batches = self.batches_per_epoch()
         q: queue.Queue = queue.Queue(maxsize=self.depth)
         stop = threading.Event()
 

@@ -13,8 +13,10 @@ would write it for its file name's extension: `.jpg` / `.jpeg` through
 `data/jpeg.encode_jpeg` (Pillow's default JPEG, byte for byte), `.png`
 through `io/png`.
 
-`--mesh` (sharding the batch over devices) waits for the multi-GPU port
-(ROADMAP Queue 1 item 5) and raises.
+`--mesh` shards each batch over the ranks of a process group (torchrun,
+or the launcher's --coordinator / --num_processes / --process_id on each
+rank): every rank runs the same metas through `generate_batch(mesh=)` and
+rank 0 alone writes the files, so the folder is the one-rank run's.
 
     python -m instancediffusion_tpu_torch.evalsuite.coco_eval \\
         --instances_json instances_val2017.json --ckpt_path model.pth [--device cuda]
@@ -166,6 +168,7 @@ def run_coco_eval(
     batch_size: int = 8,
     sampler: str | None = None,
     stats: dict | None = None,
+    mesh=None,
 ) -> int:
     """Generate one image per COCO image (without a crowd-free annotation
     the image is skipped) under its COCO file name in `out_dir`,
@@ -174,7 +177,12 @@ def run_coco_eval(
     (generate_batch pads every image to one trajectory count). Returns the
     number of images written; `stats`, when given, receives the seconds of
     each batch (`batch_s`, generation and writing) and the pipeline's
-    `last_timings` of each batch."""
+    `last_timings` of each batch. With a `mesh` every rank calls it and
+    generates its rows of each batch; rank 0 alone writes (the others
+    return the count rank 0 writes)."""
+    from instancediffusion_tpu_torch.parallel.mesh import rank_and_world
+
+    writes = rank_and_world()[0] == 0
     coco = CocoAnnotations(instances_json)
     captions = {}
     if captions_json:
@@ -189,7 +197,8 @@ def run_coco_eval(
     ids = ids[job_index * per_job:min((job_index + 1) * per_job, len(ids))]
     if limit:
         ids = ids[:limit]
-    os.makedirs(out_dir, exist_ok=True)
+    if writes:
+        os.makedirs(out_dir, exist_ok=True)
     metas = []
     for img_id in ids:
         meta = build_meta_for_image(
@@ -206,11 +215,12 @@ def run_coco_eval(
         imgs = pipe.generate_batch(
             [m for _, m in chunk], steps=steps, guidance_scale=guidance_scale,
             alpha=alpha, seeds=[seed + img_id for img_id, _ in chunk], mis=mis,
-            sampler=sampler,
+            sampler=sampler, mesh=mesh,
         )
         for (_, meta), img in zip(chunk, imgs):
-            with open(os.path.join(out_dir, meta["file_name"]), "wb") as f:
-                f.write(image_file_bytes(img, meta["file_name"]))
+            if writes:
+                with open(os.path.join(out_dir, meta["file_name"]), "wb") as f:
+                    f.write(image_file_bytes(img, meta["file_name"]))
             done += 1
         if stats is not None:
             stats.setdefault("batch_s", []).append(time.perf_counter() - t0)
@@ -238,12 +248,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--mesh", action="store_true",
-                   help="shard the eval batch over all local devices (not ported yet)")
+                   help="shard the eval batch over the ranks (torchrun or the flags below)")
     p.add_argument("--sampler", type=str, default="plms", choices=["plms", "dpm", "ddim"],
                    help="plms = the reference eval protocol; dpm = "
                         "DPM-Solver++(2M) fast serving (requires --mis 0)")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (bf16) or cpu (float32)")
+    p.add_argument("--device", type=str, default=None,
+                   help="cuda (bf16; cuda:LOCAL_RANK with --mesh) or cpu (float32)")
+    from instancediffusion_tpu_torch.launch import add_dist_args
+
+    add_dist_args(p)
     return p
 
 
@@ -252,15 +265,19 @@ def main(argv=None) -> dict:
     "last_timings", "save_dir"} (the seconds from the first batch to the
     last file written, the pipeline's load excluded)."""
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("coco_eval --mesh: multi-GPU sharding is ROADMAP Queue 1 "
-                                  "item 5, not ported yet")
     import torch
 
     from instancediffusion_tpu_torch.config import Config, apply_test_preset
     from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline, default_dtype
 
-    device = torch.device(args.device)
+    mesh, device = None, torch.device(args.device or "cuda")
+    if args.mesh:
+        from instancediffusion_tpu_torch.launch import join
+        from instancediffusion_tpu_torch.parallel.mesh import make_mesh
+
+        args.multihost = True  # torchrun's environment unless --coordinator is given
+        device = torch.device(join(args)[0])
+        mesh = make_mesh()
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("coco_eval: --device cuda but torch.cuda.is_available() is false "
                            "(pass --device cpu to run on the CPU)")
@@ -284,10 +301,14 @@ def main(argv=None) -> dict:
         num_jobs=args.num_jobs, job_index=args.job_index, limit=args.limit, steps=args.steps,
         guidance_scale=args.guidance_scale, alpha=args.alpha, mis=args.mis,
         attribute_mode=attribute_mode, seed=args.seed, batch_size=args.batch_size,
-        sampler=args.sampler, stats=stats,
+        sampler=args.sampler, stats=stats, mesh=mesh,
     )
     seconds = time.perf_counter() - t0
     s_img = seconds / n if n else float("nan")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     print(f"generated {n} images in {args.save_dir} ({s_img:.4f} s/image)")
     return {"images": n, "seconds": seconds, "s_per_image": s_img, "save_dir": args.save_dir,
             "batch_s": stats.get("batch_s", []), "last_timings": stats.get("last_timings", [])}

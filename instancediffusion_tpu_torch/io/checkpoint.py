@@ -262,16 +262,28 @@ def save_train_ckpt(folder: str, state, config_dict: dict | None, latest=True,
     """Save the whole training state, the frozen VAE and CLIP included (a
     resumed run then needs no SD checkpoint), as one torch.save file
     (checkpoint_latest, or checkpoint_<iter_idx>), written to a temporary
-    name first. Returns its path."""
+    name first. Returns its path.
+
+    Over several ranks every rank calls it: under ZeRO-1 the AdamW moments
+    and the EMA are gathered from their slices (a collective) into the
+    one-rank format, and only rank 0 writes the file."""
     import torch
+
+    from instancediffusion_tpu_torch.parallel.mesh import rank_and_world
 
     name = "checkpoint_latest" if latest else f"checkpoint_{iter_idx:08d}"
     path = os.path.abspath(os.path.join(folder, name))
+    if state.dp is not None and state.dp.zero1:
+        opt_sd, ema = state.dp.full_state(state.optimizer)
+    else:
+        opt_sd, ema = state.optimizer.state_dict(), state.ema
+    if rank_and_world()[0] != 0:
+        return path
     payload = {
         "step": state.step,
         "unet": _params(state.unet),
-        "ema": state.ema,
-        "optimizer": state.optimizer.state_dict(),
+        "ema": ema,
+        "optimizer": opt_sd,
         "scheduler": None if state.scheduler is None else state.scheduler.state_dict(),
     }
     if state.vae is not None:
@@ -317,7 +329,9 @@ def restore_train_ckpt(path: str, state, have_pretrained: bool = True):
     optimizer's and the schedule's state (so the step count and warm-up
     resume). A checkpoint without the frozen VAE/CLIP keeps the state's own,
     and raises when the caller has no pretrained ones (have_pretrained=False):
-    training against random frozen encoders is garbage."""
+    training against random frozen encoders is garbage. Under ZeRO-1 each
+    rank takes its slice of the moments and the EMA (the file holds them
+    whole, from whatever number of ranks wrote it)."""
     import torch
 
     payload = _torch_load(path)
@@ -330,12 +344,16 @@ def restore_train_ckpt(path: str, state, have_pretrained: bool = True):
             "initialized frozen encoders. Re-pass the official checkpoint (or re-save "
             "with the current format).")
     _load_into(state.unet, payload["unet"])
-    if set(payload["ema"]) != set(state.ema):
+    names = state.dp.names if state.ema is None else state.ema
+    if set(payload["ema"]) != set(names):
         raise KeyError("checkpoint EMA does not cover the state's trainable parameters")
-    with torch.no_grad():
-        for name, t in payload["ema"].items():
-            state.ema[name].copy_(t)
-    state.optimizer.load_state_dict(payload["optimizer"])
+    if state.dp is not None and state.dp.zero1:
+        state.dp.load_full_state(state.optimizer, payload["optimizer"], payload["ema"])
+    else:
+        with torch.no_grad():
+            for name, t in payload["ema"].items():
+                state.ema[name].copy_(t)
+        state.optimizer.load_state_dict(payload["optimizer"])
     if state.scheduler is not None and payload["scheduler"] is not None:
         state.scheduler.load_state_dict(payload["scheduler"])
     if wants_frozen and has_frozen:

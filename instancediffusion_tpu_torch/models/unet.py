@@ -15,6 +15,11 @@ Training (`apply_unet(train=True)`) takes the differentiable flash kernels
 with unscaled q; `remat=True` recomputes each res block and spatial
 transformer in the backward (torch.utils.checkpoint), as the JAX package's
 jax.checkpoint does.
+
+Under tensor parallelism (`parallel/tp.py`, a "model" group set around the
+forward on a rank's sharded copy of the UNet) the row-parallel projections
+(attention `to_out`, the FF down-projection) all_reduce their partial sums
+and add the bias after the sum, and the `FUSED_PROJ` route stays off.
 """
 
 from __future__ import annotations
@@ -28,9 +33,11 @@ from instancediffusion_tpu_torch.config import UNetConfig
 from instancediffusion_tpu_torch.kernels.flash_attention import flash_attention
 from instancediffusion_tpu_torch.kernels.geglu_ff import ff_geglu, ff_geglu_plain
 from instancediffusion_tpu_torch.kernels.head_layout import merge_proj, proj_split
+from instancediffusion_tpu_torch import parallel
 from instancediffusion_tpu_torch.models import unifusion
 from instancediffusion_tpu_torch.nn import core as nn
 from instancediffusion_tpu_torch.ops.attention import flash_route, multi_head_attention
+from instancediffusion_tpu_torch.parallel import tp
 from instancediffusion_tpu_torch.ops.schedules import timestep_embedding
 
 
@@ -136,10 +143,23 @@ def _apply_mha_fused(p: MHA, x, kv, num_heads, kv_len=None, labels=None):
     return merge_proj(out, p.to_out.weight.to(dt), p.to_out.bias.to(dt))[:, :n]
 
 
+def _row_parallel(y, bias):
+    """The end of a row-parallel projection: under tensor parallelism
+    (`parallel/tp.py` sets a "model" group around the forward) `y` holds
+    this rank's partial sums; all_reduce them over the group, then add the
+    replicated bias (before the sum it would count tp times). Without a TP
+    group: y + bias."""
+    grp = tp.group()
+    if grp is not None:
+        parallel.all_reduce(y, group=grp)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
 def _apply_mha(p: MHA, x, kv, num_heads, impl, kv_len=None, mask=None, labels=None):
     c = p.to_q.weight.shape[0] // num_heads
     n, m = x.shape[1], kv.shape[1]
-    if (FUSED_PROJ and c < 64
+    # the fused route merges the heads into to_out with its bias: never under TP
+    if (FUSED_PROJ and c < 64 and tp.group() is None
             and flash_route(impl, n, m, x.dtype, c, labels, mask) == "split"):
         return _apply_mha_fused(p, x, kv, num_heads, kv_len, labels)
     pre_scaled = impl == "kernel"
@@ -154,7 +174,10 @@ def _apply_mha(p: MHA, x, kv, num_heads, impl, kv_len=None, mask=None, labels=No
     v = nn.linear(p.to_v, kv)
     out = multi_head_attention(q, k, v, num_heads, mask=mask, labels=labels, impl=impl,
                                pre_scaled=pre_scaled, kv_len=kv_len)
-    return nn.linear(p.to_out, out)
+    if tp.group() is None:
+        return nn.linear(p.to_out, out)
+    return _row_parallel(torch.nn.functional.linear(out, p.to_out.weight.to(out.dtype)),
+                         p.to_out.bias)
 
 
 class FeedForward(torch.nn.Module):
@@ -169,10 +192,16 @@ class FeedForward(torch.nn.Module):
 
 def _apply_ff_geglu(p: FeedForward, x):
     """`ff_geglu` picks the fused kernel or the unfused route by dtype and
-    shape (`ff_fits`); `plain_kernels()` takes the fp32 plain version."""
+    shape (`ff_fits`); `plain_kernels()` takes the fp32 plain version. Under
+    TP the route runs on this rank's column shard with a zero down bias and
+    the bias follows the all_reduce (JAX's `_apply_ff_geglu`)."""
     fn = ff_geglu if nn.kernels_enabled() else ff_geglu_plain
     dt = x.dtype
-    return fn(x, p.proj.weight.to(dt), p.proj.bias, p.out.weight.to(dt), p.out.bias)
+    if tp.group() is None:
+        return fn(x, p.proj.weight.to(dt), p.proj.bias, p.out.weight.to(dt), p.out.bias)
+    y = fn(x, p.proj.weight.to(dt), p.proj.bias, p.out.weight.to(dt),
+           torch.zeros_like(p.out.bias))
+    return _row_parallel(y, p.out.bias)
 
 
 class Fuser(torch.nn.Module):

@@ -12,12 +12,14 @@ attention (`use_masked_att`); VAE decode in the compute dtype; uint8
 quantisation (floor) on the device.
 
 `generate_batch` makes one image per meta in one sampling run (the serving
-path, `serve.py`); `img2img` encodes an image, noises it to a mid-schedule
+path, `serve.py`), optionally over a ("data", "model") mesh of ranks
+(`parallel/`); `img2img` encodes an image, noises it to a mid-schedule
 step and runs the rest of the PLMS schedule.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
@@ -34,6 +36,8 @@ from instancediffusion_tpu_torch.kernels.flash_attention import instance_labels
 from instancediffusion_tpu_torch.models import clip_text, unet, unifusion, vae
 from instancediffusion_tpu_torch.ops.instance_mask import rasterize_boxes
 from instancediffusion_tpu_torch.ops.schedules import make_diffusion_schedule
+from instancediffusion_tpu_torch.parallel import mesh as mesh_mod
+from instancediffusion_tpu_torch.parallel import tp
 from instancediffusion_tpu_torch.samplers.ddim import ddim_sample, make_ddim_schedule
 from instancediffusion_tpu_torch.samplers.dpm import dpm_sample, make_dpm_schedule
 from instancediffusion_tpu_torch.samplers.mis import mis_sample, stack_groundings
@@ -87,6 +91,9 @@ class InstanceDiffusionPipeline:
         self.last_timings: dict = {}
         # host seconds per stage of from_checkpoint (empty otherwise)
         self.load_timings: dict = {}
+        # (key, this rank's tensor-parallel UNet) of the last mesh with a
+        # "model" axis (`generate_batch(mesh=)`)
+        self._tp_unet = None
 
     @property
     def image_size(self) -> int:
@@ -141,6 +148,7 @@ class InstanceDiffusionPipeline:
         the merge stats; a base-model shape mismatch raises ValueError."""
         from instancediffusion_tpu_torch.io import lora as lora_io
 
+        self._tp_unet = None  # its slices were cut from the weights before the merge
         return lora_io.merge_lora(self.unet, lora_io.load_lora_file(path), scale=scale,
                                   clip=self.clip if include_text_encoder else None)
 
@@ -224,10 +232,12 @@ class InstanceDiffusionPipeline:
                                           self.cfg.model.grounding_tokenizer, device=self.device)
         return (uc, *self._conditioning(null_g))
 
-    def _cfg_model_fn(self, ctx, objs, labels, null, gs: float):
+    def _cfg_model_fn(self, ctx, objs, labels, null, gs: float, mesh=None):
         """Classifier-free guidance over conditioning rows (one per latent
         row) as one [cond | uncond] forward; the unconditional half takes
-        `null` = (context, tokens, labels) rows, broadcast."""
+        `null` = (context, tokens, labels) rows, broadcast. With a mesh
+        whose "model" axis is larger than 1 the forward is this rank's
+        tensor-parallel one (`parallel/tp.py`)."""
         n = ctx.shape[0]
         expand = lambda t: t.expand(n, *t.shape[1:])
         uc, objs_u, labels_u = null
@@ -237,15 +247,26 @@ class InstanceDiffusionPipeline:
         if labels is not None:
             labels2 = tuple(torch.cat([a, expand(u)]) for a, u in zip(labels, labels_u))
         mcfg, dt = self.cfg.model, self.dtype
+        forward = functools.partial(unet.apply_unet, self.unet, mcfg)
+        if mesh_mod.axis_size(mesh, "model") > 1:
+            forward = functools.partial(tp.tp_forward, mesh, self._tp_local(mesh), mcfg)
 
         def model_fn(x, t, gate):
             x2 = torch.cat([x, x]).to(dt)
-            eps2 = unet.apply_unet(self.unet, mcfg, x2, torch.cat([t, t]), ctx2,
-                                   gate_scale=gate, precomputed_objs=objs2, fuser_mask=labels2)
+            eps2 = forward(x2, torch.cat([t, t]), ctx2, gate_scale=gate,
+                           precomputed_objs=objs2, fuser_mask=labels2)
             e_cond, e_uncond = eps2.chunk(2)
             return e_uncond + gs * (e_cond - e_uncond)
 
         return model_fn
+
+    def _tp_local(self, mesh) -> unet.UNet:
+        """This rank's tensor-parallel copy of the UNet on `mesh` (made once
+        per mesh and UNet)."""
+        key = (id(mesh), id(self.unet))
+        if self._tp_unet is None or self._tp_unet[0] != key:
+            self._tp_unet = (key, tp.shard_unet(self.unet, mesh))
+        return self._tp_unet[1]
 
     def _latents(self, initial_latents, b: int, seeds) -> torch.Tensor:
         """Starting noise (b, h, w, C) in the compute dtype: the caller's
@@ -265,12 +286,16 @@ class InstanceDiffusionPipeline:
         x = randn(b, seeds) if isinstance(seeds, int) else torch.cat([randn(1, s) for s in seeds])
         return x.to(self.dtype)
 
-    def _finish(self, z: torch.Tensor, timings: dict, t_sample: float) -> np.ndarray:
+    def _finish(self, z: torch.Tensor, timings: dict, t_sample: float, mesh=None,
+                n: int | None = None) -> np.ndarray:
         """VAE decode and uint8 quantisation on the device ([-1, 1] ->
-        uint8 with floor, the reference's numpy astype truncation); records
-        the sampling and fetch times."""
+        uint8 with floor, the reference's numpy astype truncation); with a
+        mesh, every data rank's images in rank order, the first `n` kept;
+        records the sampling and fetch times."""
         img = vae.vae_decode(self.vae, z.to(self.dtype))
         img = torch.floor((img.float().clamp(-1.0, 1.0) * 0.5 + 0.5) * 255.0).to(torch.uint8)
+        if mesh is not None:
+            img = mesh_mod.gather_rows(mesh, img, n)
         if img.is_cuda:
             torch.cuda.synchronize(img.device)
         timings["sample"] = time.perf_counter() - t_sample
@@ -352,7 +377,7 @@ class InstanceDiffusionPipeline:
                        guidance_scale: float | None = None, alpha: float | None = None,
                        seeds: list[int] | None = None, negative_prompt: str | None = None,
                        mis: float | None = None, sampler: str | None = None,
-                       initial_latents: np.ndarray | None = None) -> np.ndarray:
+                       initial_latents: np.ndarray | None = None, mesh=None) -> np.ndarray:
         """One image per meta, every meta a row of one sampling run (the
         grounding is max_objs-padded, so different metas batch as they
         are). Row i starts from the noise of a torch.Generator seeded with
@@ -363,6 +388,15 @@ class InstanceDiffusionPipeline:
         instance count rounded up to a multiple of 4 (at most max_objs);
         an image's padding trajectories take the negative prompt and the
         null grounding and are left out of its merge (traj_weights 0).
+
+        mesh (`parallel.mesh.make_mesh`; every rank of it calls with the same
+        arguments): the metas are padded to a multiple of the "data" size by
+        repeating the last (meta, seed), and every rank returns all the
+        images. Every rank computes the whole padded batch's conditioning
+        (one text encode, grounding and UniFusion, replicated, as JAX
+        encodes the batch unsharded before it shards), then samples only
+        its rows; row i's noise still comes from seeds[i]. With "model" > 1
+        the UNet runs tensor-parallel.
         Returns (len(metas), H, W, 3) uint8."""
         scfg = self.cfg.sampler
         steps = steps or scfg.steps
@@ -372,20 +406,27 @@ class InstanceDiffusionPipeline:
         sampler = scfg.sampler if sampler is None else sampler
         mis = _resolve_mis(sampler, mis, scfg.mis)
         mcfg = self.cfg.model
-        b = len(metas)
-        if b == 0:
+        n_meta = len(metas)
+        if n_meta == 0:
             raise ValueError("generate_batch needs at least one meta")
-        seeds = list(range(b)) if seeds is None else [int(s) for s in seeds]
-        if len(seeds) != b:
-            raise ValueError(f"{len(seeds)} seeds for {b} metas")
-        timings: dict = {}
-        t0 = time.perf_counter()
-        sched = self._make_schedule(sampler, steps, [alpha, 0.0, 1.0 - alpha])
+        seeds = list(range(n_meta)) if seeds is None else [int(s) for s in seeds]
+        if len(seeds) != n_meta:
+            raise ValueError(f"{len(seeds)} seeds for {n_meta} metas")
+        d = mesh_mod.axis_size(mesh, "data")
+        b = -(-n_meta // d) * d
+        metas = list(metas) + [metas[-1]] * (b - n_meta)
+        seeds += [seeds[-1]] * (b - n_meta)
         counts = [len(m["phrases"]) for m in metas]
         num_traj, mis_step = 1, 0
         if mis > 0 and max(counts) > 0:
             num_traj = 1 + min(mcfg.max_objs, -(-max(counts) // 4) * 4)
             mis_step = int(steps * mis)
+        if initial_latents is not None and b > n_meta:
+            x0 = np.asarray(initial_latents)
+            initial_latents = np.concatenate([x0] + [x0[-1:]] * (b - n_meta))
+        timings: dict = {}
+        t0 = time.perf_counter()
+        sched = self._make_schedule(sampler, steps, [alpha, 0.0, 1.0 - alpha])
 
         # one batched text encode: every prompt, the negative prompt, every
         # phrase (a MIS instance prompt is its phrase: its row is reused)
@@ -403,8 +444,11 @@ class InstanceDiffusionPipeline:
             for m, off, k in zip(metas, phrase_off, counts)])
         objs, labels = self._conditioning(grounding)
         null = self._null_conditioning(last[b:b + 1])
-        x_init = self._latents(initial_latents, b, seeds)
-        global_fn = self._cfg_model_fn(last[:b], objs, labels, null, gs)
+        # this rank's rows of the batch (all of them without a mesh)
+        rows = mesh_mod.row_slice(mesh, b)
+        x_init = self._latents(initial_latents, b, seeds)[rows]
+        labels_r = None if labels is None else tuple(a[rows] for a in labels)
+        global_fn = self._cfg_model_fn(last[rows], objs[rows], labels_r, null, gs, mesh)
         traj_fn = traj_weights = None
         if num_traj > 1 and mis_step > 0:
             # trajectory-major stacks: rows [j*b, (j+1)*b) hold trajectory j
@@ -412,27 +456,33 @@ class InstanceDiffusionPipeline:
             # j+1 of image i is its instance j alone, or padding
             null_row = unifusion.null_grounding(1, mcfg.max_objs, mcfg.grounding_tokenizer,
                                                 device=self.device)
-            rows, ctx_idx = [], list(range(b))
+            g_rows, ctx_idx = [], list(range(b))
             for j in range(num_traj - 1):
                 for i, m in enumerate(metas):
                     if j < counts[i]:
-                        rows.append(self._grounding_row(
+                        g_rows.append(self._grounding_row(
                             prepare_instance_meta(m, j),
                             pooled[phrase_off[i] + j:phrase_off[i] + j + 1]))
                         ctx_idx.append(phrase_off[i] + j)
                     else:
-                        rows.append(null_row)
+                        g_rows.append(null_row)
                         ctx_idx.append(b)  # the negative prompt's row
-            objs_t, labels_t = self._conditioning(stack_groundings(rows))
+            objs_t, labels_t = self._conditioning(stack_groundings(g_rows))
             objs_s = torch.cat([objs, objs_t])
             labels_s = None if labels is None else tuple(
                 torch.cat([a, t]) for a, t in zip(labels, labels_t))
             ctx_s = last[torch.as_tensor(ctx_idx, device=self.device)]
-            traj_fn = self._cfg_model_fn(ctx_s, objs_s, labels_s, null, gs)
             w = np.ones((num_traj, b), np.float32)
             for i, k in enumerate(counts):
                 w[1 + k:, i] = 0.0
-            traj_weights = torch.from_numpy(w).to(self.device)
+            if mesh is not None:  # this rank's rows of every trajectory
+                keep = torch.arange(num_traj * b, device=self.device).view(num_traj, b)
+                keep = keep[:, rows].reshape(-1)
+                ctx_s, objs_s = ctx_s[keep], objs_s[keep]
+                labels_s = None if labels_s is None else tuple(a[keep] for a in labels_s)
+                w = w[:, rows]
+            traj_fn = self._cfg_model_fn(ctx_s, objs_s, labels_s, null, gs, mesh)
+            traj_weights = torch.from_numpy(np.ascontiguousarray(w)).to(self.device)
         timings["grounding_prep"] = time.perf_counter() - t0
 
         t_sample = time.perf_counter()
@@ -441,7 +491,7 @@ class InstanceDiffusionPipeline:
                            traj_weights=traj_weights)
         else:
             z = _SAMPLERS[sampler][1](global_fn, sched, x_init)
-        return self._finish(z, timings, t_sample)
+        return self._finish(z, timings, t_sample, mesh, n_meta)
 
     @torch.inference_mode()
     def img2img(self, image: np.ndarray, meta: dict, strength: float = 0.5,

@@ -16,6 +16,13 @@ Endpoints (stdlib http.server):
 
 The PNG is encoded with zlib and struct (no imaging library needed).
 
+With `--mesh` the server spans the ranks of a process group (torchrun, or
+the launcher's --coordinator / --num_processes / --process_id on each
+rank): rank 0 runs the HTTP server and the batching queue, each batch's
+(metas, seeds) reaches the other ranks by `broadcast_object_list`, and
+every rank runs `generate_batch(mesh=)` on its rows (`MeshLeader`,
+`follow`); a None broadcast ends the followers.
+
     python -m instancediffusion_tpu_torch.serve --steps 20 --sampler dpm \\
         --batch_size 8 --port 8321 [--ckpt pretrained/instancediffusion_sd15.pth]
 
@@ -175,19 +182,69 @@ def make_handler(batcher: BatchingQueue, device_desc: str):
     return Handler
 
 
+class MeshLeader:
+    """Rank 0's `generate_batch` over a mesh: broadcasts each batch's
+    (metas, seeds, options) to the other ranks, which run `follow`, then
+    takes its own part. A lock keeps the broadcasts in one order; `close`
+    waits for a batch in flight, then ends the followers."""
+
+    def __init__(self, pipe, mesh):
+        self.pipe, self.mesh = pipe, mesh
+        self._lock = threading.Lock()
+        self._closed = False
+
+    def __call__(self, metas, seeds, **kw):
+        import torch.distributed as dist
+
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("the mesh server is closed")
+            dist.broadcast_object_list([(list(metas), list(seeds), kw)], src=0)
+            return self.pipe.generate_batch(metas, seeds=seeds, mesh=self.mesh, **kw)
+
+    def close(self):
+        import torch.distributed as dist
+
+        with self._lock:
+            if not self._closed:
+                self._closed = True
+                dist.broadcast_object_list([None], src=0)
+
+
+def follow(pipe, mesh) -> int:
+    """A rank other than 0 of a mesh server: run every batch rank 0
+    broadcasts until the None that ends the server. Returns the batch
+    count."""
+    import torch.distributed as dist
+
+    n = 0
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0)
+        if msg[0] is None:
+            return n
+        metas, seeds, kw = msg[0]
+        pipe.generate_batch(metas, seeds=seeds, mesh=mesh, **kw)
+        n += 1
+
+
 WARM_META = {"prompt": "warmup", "phrases": ["a thing"], "locations": [[0.2, 0.2, 0.8, 0.8]],
              "points": [[0.5, 0.5]]}
 
 
 def serve(pipe, host: str = "127.0.0.1", port: int = 8321, batch_size: int = 8,
-          max_wait_ms: float = 50.0, warmup: bool = True,
+          max_wait_ms: float = 50.0, warmup: bool = True, mesh=None,
           **gen_kwargs) -> ThreadingHTTPServer:
     """Start serving `pipe` (InstanceDiffusionPipeline) on a background
     thread; port 0 takes a free one (`server.server_address[1]`). With
     `warmup`, one full batch runs before the port opens. Returns the
     running server: stop it with .shutdown(), .server_close() and
-    .batcher.close()."""
-    batcher = BatchingQueue(pipe.generate_batch, batch_size=batch_size,
+    .batcher.close(). With a `mesh` this is rank 0 of it (the other ranks
+    run `follow`), and .leader.close() then ends them (.leader is None
+    without a mesh)."""
+    leader = None if mesh is None else MeshLeader(pipe, mesh)
+    generate = pipe.generate_batch if leader is None else leader
+    batcher = BatchingQueue(generate, batch_size=batch_size,
                             max_wait_ms=max_wait_ms, **gen_kwargs)
     if warmup:
         t0 = time.time()
@@ -200,7 +257,7 @@ def serve(pipe, host: str = "127.0.0.1", port: int = 8321, batch_size: int = 8,
     dev = pipe.device
     device = torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)
     server = ThreadingHTTPServer((host, port), make_handler(batcher, device))
-    server.batcher = batcher
+    server.batcher, server.leader = batcher, leader
     threading.Thread(target=server.serve_forever, daemon=True).start()
     print(f"serve: listening on http://{host}:{server.server_address[1]}", flush=True)
     return server
@@ -239,13 +296,29 @@ def main(argv=None):
     p.add_argument("--sampler", type=str, default="plms", choices=["plms", "dpm", "ddim"])
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights (without --ckpt)")
-    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--device", type=str, default=None,
+                   help="default cuda (cuda:LOCAL_RANK with --mesh)")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard serving batches over the ranks (torchrun or the flags below)")
+    from instancediffusion_tpu_torch.launch import add_dist_args, join
+
+    add_dist_args(p)
     args = p.parse_args(argv)
-    pipe = build_pipeline(args.ckpt, args.test_config, args.seed, args.device)
+    mesh, device = None, args.device or "cuda"
+    if args.mesh:
+        from instancediffusion_tpu_torch.parallel.mesh import make_mesh
+
+        args.multihost = True  # torchrun's environment unless --coordinator is given
+        device, rank, _ = join(args)
+        mesh = make_mesh()
+    pipe = build_pipeline(args.ckpt, args.test_config, args.seed, device)
+    gen = dict(steps=args.steps, guidance_scale=args.guidance_scale, alpha=args.alpha,
+               mis=args.mis, sampler=args.sampler)
+    if mesh is not None and rank != 0:
+        follow(pipe, mesh)
+        return
     server = serve(pipe, host=args.host, port=args.port, batch_size=args.batch_size,
-                   max_wait_ms=args.max_wait_ms, steps=args.steps,
-                   guidance_scale=args.guidance_scale, alpha=args.alpha, mis=args.mis,
-                   sampler=args.sampler)
+                   max_wait_ms=args.max_wait_ms, mesh=mesh, **gen)
     try:
         while True:
             time.sleep(3600)
@@ -253,6 +326,8 @@ def main(argv=None):
         server.shutdown()
         server.server_close()
         server.batcher.close()
+        if server.leader is not None:
+            server.leader.close()
 
 
 if __name__ == "__main__":

@@ -66,14 +66,19 @@ def warmup_factor(count: int, warmup_steps: int, scheduler_type: str = "constant
 
 def make_optimizer(module: torch.nn.Module, learning_rate: float = 5e-5,
                    weight_decay: float = 0.0, warmup_steps: int = 5000,
-                   scheduler_type: str = "constant", total_steps: int = 500_000):
+                   scheduler_type: str = "constant", total_steps: int = 500_000,
+                   dp=None):
     """(AdamW over the trainable parameters of `module`, its LambdaLR
     schedule). Step the schedule after each optimizer step: at construction
-    it sets lr = learning_rate * factor(0), so update k runs at factor(k)."""
+    it sets lr = learning_rate * factor(0), so update k runs at factor(k).
+    With ZeRO-1 data parallelism (`dp`, a `parallel.zero.DataParallel`) the
+    AdamW steps this rank's flat slice of the trainable parameters instead:
+    the same arithmetic, element for element."""
     if scheduler_type not in ("constant", "cosine"):
         raise ValueError(scheduler_type)
     trainable_mask(module)
-    params = list(trainable_parameters(module).values())
+    params = (list(trainable_parameters(module).values()) if dp is None
+              else dp.optimizer_params())
     opt = torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=weight_decay)
     sched = torch.optim.lr_scheduler.LambdaLR(

@@ -12,7 +12,11 @@ Per step:
   7. loss = fp32 MSE(eps_hat, eps); backward; optimizer, schedule and EMA
      updates on the trainable subset
 A non-finite loss skips the optimizer, the schedule and the EMA, and only
-`step` advances. The random draws of a step are made apart from the step
+`step` advances. With data parallelism (`state.dp`, `parallel/zero.py`)
+one all_reduce after `loss.backward()` averages the gradients and the loss
+over the ranks, so the skip is decided on the global loss, the same on
+every rank; with ZeRO-1 the optimizer steps this rank's slice and one
+all_gather brings the parameters back. The random draws of a step are made apart from the step
 (`sample_draws`), so a caller can hand it any draws (a test hands it those
 of the JAX package's recipe). Grounding and UniFusion stay fp32; the
 frozen weights are bf16 after `cast_frozen_bf16` and the activations run in
@@ -33,6 +37,7 @@ from instancediffusion_tpu_torch.kernels.flash_attention import instance_labels
 from instancediffusion_tpu_torch.models import clip_text, unet, unifusion, vae
 from instancediffusion_tpu_torch.ops.instance_mask import rasterize_boxes
 from instancediffusion_tpu_torch.ops.schedules import DiffusionSchedule, q_sample
+from instancediffusion_tpu_torch.parallel.zero import DataParallel
 from instancediffusion_tpu_torch.train.optimizer import init_ema, trainable_mask, update_ema
 
 
@@ -40,11 +45,14 @@ from instancediffusion_tpu_torch.train.optimizer import init_ema, trainable_mask
 class TrainState:
     step: int
     unet: unet.UNet
-    ema: dict               # trainable-subset EMA, {parameter name: tensor}
+    # trainable-subset EMA, {parameter name: tensor}; None under ZeRO-1,
+    # where `dp` holds this rank's slice of it
+    ema: dict | None
     vae: vae.AutoencoderKL  # frozen, with its encoder
     clip: clip_text.CLIPTextModel  # frozen
     optimizer: torch.optim.Optimizer | None = None
     scheduler: torch.optim.lr_scheduler.LRScheduler | None = None
+    dp: DataParallel | None = None  # data parallelism over ranks (parallel/zero.py)
 
 
 @dataclass
@@ -160,15 +168,33 @@ def make_train_step(cfg: Config, diffusion: DiffusionSchedule,
     ema_rate = cfg.train.ema_rate
 
     def train_step(state: TrainState, batch: dict, draws: Draws):
+        dp = state.dp
         loss = loss_fn(state, batch, draws)
         loss.backward()
+        if dp is not None:
+            loss = dp.all_reduce(loss)  # the global mean loss, averaged gradients
         ok = bool(torch.isfinite(loss))
         if ok:
+            if dp is not None:
+                dp.load_grads()
+            else:
+                # a trainable parameter this step did not reach (a dropped
+                # modality) takes a zero gradient, as in JAX and under data
+                # parallelism: its moments decay and its step count advances
+                for group in state.optimizer.param_groups:
+                    for p in group["params"]:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
             state.optimizer.step()
             if state.scheduler is not None:
                 state.scheduler.step()
-            update_ema(state.ema, state.unet, ema_rate)
+            if dp is not None and dp.zero1:
+                dp.finish_step(ema_rate)
+            else:
+                update_ema(state.ema, state.unet, ema_rate)
         state.optimizer.zero_grad(set_to_none=True)
+        if dp is not None:
+            dp.zero_grad()
         state.step += 1
         return state, {"loss": loss.detach(), "skipped": not ok}
 

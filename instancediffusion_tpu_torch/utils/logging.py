@@ -55,6 +55,15 @@ class MetricLogger:
                 os.path.join(log_dir, "scalars.jsonl"), "a", buffering=1
             )
             try:
+                import sys
+                import types
+
+                # TensorBoard's TensorFlow-free route (what its `notf` build
+                # selects): without it, torch's writer imports TensorFlow
+                # wherever it is installed, ~12 s of a launcher's start on
+                # an idle host core, for the same event files
+                sys.modules.setdefault("tensorboard.compat.notf",
+                                       types.ModuleType("tensorboard.compat.notf"))
                 from torch.utils.tensorboard import SummaryWriter
 
                 self.writer = SummaryWriter(log_dir)

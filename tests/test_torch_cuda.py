@@ -1065,3 +1065,53 @@ def test_encode_phrases_on_card(dev, monkeypatch):
     assert all(np.isfinite(e).all() for e in out)
     alone = pipe.encode_phrases(["bench"])[0]
     assert np.abs(alone - out[2]).max() <= 2e-2 * np.abs(out[2]).max()
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the kernels at a rank's local shapes (4 of 8 heads,
+# half the FF inner width)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ds1_self", "ds1_fuser", "ds2_packed"])
+def test_flash_forward_at_tensor_parallel_heads_on_card(dev, case):
+    """K1 on ds1's self-attention (4096 keys) and fuser (4280), 4 heads of
+    40, and K2 on ds2's 1024 x 1024 packed layout, 4 heads of 80: a tp=2
+    rank's share of SD1.5's 8 heads, at B=16."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    b, h = 16, 4
+    if case == "ds2_packed":
+        q, k, v = (_rnd(g, dev, b, 1024, h * 80) for _ in range(3))
+        kern = lambda: fa.flash_attention_packed(q, k, v, h)
+        ref = sdpa_fp32(_heads(q, h), _heads(k, h), _heads(v, h)).transpose(1, 2).reshape(
+            b, 1024, h * 80)
+    else:
+        m = 4096 if case == "ds1_self" else 4280
+        q, k, v = (_heads(_rnd(g, dev, b, s, h * 40), h) for s in (4096, m, m))
+        kern = lambda: fa.flash_attention(q, k, v)
+        ref = sdpa_fp32(q, k, v)
+    kernels.reset_launch_counts()
+    out = kern()
+    torch.cuda.synchronize()
+    assert sum(kernels.LAUNCHES.values()) == 1
+    assert out.shape == ref.shape and torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max() <= REL_TOL * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, c", [(4096, 320), (1024, 640)], ids=["ds1", "ds2"])
+def test_ff_geglu_tensor_parallel_width_on_card(dev, n, c):
+    """K5 on a tp=2 rank's column shard: inner 640 at C=320 and 1280 at
+    C=640, the down bias zero (the UNet adds it after the all_reduce), B=16."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    inner = 2 * c
+    args = [_rnd(g, dev, 16, n, c), _rnd(g, dev, 2 * inner, c, std=c ** -0.5),
+            _rnd(g, dev, 2 * inner, std=0.1), _rnd(g, dev, c, inner, std=inner ** -0.5),
+            torch.zeros(c, device=dev, dtype=torch.bfloat16)]
+    kernels.reset_launch_counts()
+    out = ff.ff_geglu(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_ff_geglu"] == 1
+    ref = ff.ff_geglu_plain(*args).float()
+    assert (out.float() - ref).abs().max().item() <= REL_TOL * ref.abs().max().item()

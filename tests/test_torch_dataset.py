@@ -234,3 +234,43 @@ def test_decode_processes_leave_preemption_signals_to_the_parent(records, tmp_pa
     finally:
         loader.close()
     assert not multiprocessing.active_children()
+
+
+def test_close_ends_a_decode_process_that_outlives_sigterm(monkeypatch):
+    """A decode process that outlives the pool's SIGTERM leaves
+    `Pool.terminate` waiting for it without a bound (seen under load);
+    close() waits CLOSE_WAIT_S, kills the processes still alive, and
+    returns once terminate does. A stand-in pool whose terminate waits for
+    its process to die."""
+    monkeypatch.setattr(pds, "CLOSE_WAIT_S", 0.2)
+
+    class Proc:
+        def __init__(self):
+            self.dead = threading.Event()
+
+        def is_alive(self):
+            return not self.dead.is_set()
+
+        def kill(self):
+            self.dead.set()
+
+    class Pool:
+        def __init__(self):
+            self._pool = [Proc(), Proc()]
+            self._pool[1].dead.set()  # one already ended on the signal
+            self.joined = False
+
+        def terminate(self):
+            self._pool[0].dead.wait()
+
+        def join(self):
+            self.joined = True
+
+    loader = pds.Prefetcher(None, 1, workers=2)
+    loader._pool, loader._closing = Pool(), multiprocessing.RawValue("b", 0)
+    pool = loader._pool
+    done = threading.Thread(target=loader.close, daemon=True)
+    done.start()
+    done.join(30)
+    assert not done.is_alive() and pool.joined and loader._closing.value == 1
+    assert not any(p.is_alive() for p in pool._pool) and loader._pool is None

@@ -190,12 +190,40 @@ def test_run_coco_eval_images_match_jax(coco_files, eval_pipes, tmp_path, monkey
 
 
 def test_main_refuses_mesh_and_a_missing_card(coco_files, tmp_path):
+    """--mesh with no rendezvous (no torchrun environment, no --coordinator)
+    raises, as does --device cuda without a card."""
     inst, _ = coco_files
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(ValueError, match="torchrun"):
         pce.main(["--instances_json", inst, "--mesh", "--save_dir", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             pce.main(["--instances_json", inst, "--save_dir", str(tmp_path)])
+
+
+def test_main_mesh_on_two_ranks_writes_the_one_rank_files(coco_files, eval_pipes, tmp_path,
+                                                          monkeypatch):
+    """coco_eval --mesh on 2 gloo ranks (the batches over "data", rank 0
+    writing) leaves the folder one process writes, byte for byte: the tiny
+    eval config's random weights, 2 PLMS steps, batches of 4 over 5 images
+    (the last batch padded)."""
+    from instancediffusion_tpu_torch import config
+
+    from tests import torch_ranks
+
+    inst, caps = coco_files
+    pcfg = port_config(eval_pipes[0])
+    argv = ["--instances_json", inst, "--captions_json", caps, "--steps", "2", "--limit", "5",
+            "--batch_size", "4", "--add_random_colors"]
+    got = torch_ranks.run_ranks(torch_ranks.coco_eval_main, 2, pcfg,
+                                [*argv, "--save_dir", str(tmp_path / "mesh")], join=False)
+    assert got == [5, 5]
+    monkeypatch.setattr(config, "Config", lambda: pcfg)
+    one = pce.main([*argv, "--device", "cpu", "--save_dir", str(tmp_path / "one")])
+    assert one["images"] == 5
+    names = sorted(os.listdir(tmp_path / "one"))
+    assert names == sorted(os.listdir(tmp_path / "mesh")) and len(names) == 5
+    for name in names:
+        assert (tmp_path / "mesh" / name).read_bytes() == (tmp_path / "one" / name).read_bytes()
 
 
 def test_main_refuses_a_missing_checkpoint(coco_files, tmp_path):

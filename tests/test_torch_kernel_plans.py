@@ -264,6 +264,40 @@ def test_ff_fits_routes_each_unet_level(batch):
     assert (fused, sum(cnt for _, _, cnt in UNET_FF.values()) - fused) == (20, 12)
 
 
+@pytest.mark.parametrize("tp_size", [2, 4])
+@pytest.mark.parametrize("batch", [2, 16])
+def test_ff_fits_at_the_tensor_parallel_widths(batch, tp_size):
+    """Under tensor parallelism a rank's FF keeps 1/tp of the inner width:
+    640 at C=320 and 1280 at C=640 for tp 2 (320 and 640 for tp 4), whole
+    turns of `turn_cols` (64 and 128), so ds1 and ds2 stay on the fused
+    kernel (with a zero down bias, added after the all_reduce) and the plan
+    tiles them; ds4 and ds8 stay unfused."""
+    for k, (n, c, _) in UNET_FF.items():
+        inner = 4 * c // tp_size
+        assert ff.ff_fits(batch * n, c, inner) == (k in ("ds1", "ds2")), (k, inner)
+        if k in ("ds1", "ds2"):
+            plan = ff.ff_plan(batch * n, c, inner)
+            assert plan.turns * ff.turn_cols(c) == inner
+            assert plan.w2 == ff.MatrixMap(inner, c, 2 * inner, 64, c // (2 * plan.cluster))
+
+
+def test_tma_plan_tensor_parallel_heads():
+    """tp 2 leaves a rank 4 of SD1.5's 8 heads: ds1 self-attention on the
+    (16, 4096, 4*40) projection's head view and the fuser's keys over 4280
+    rows, ds2 on the packed (16, 1024, 4*80) layout."""
+    q = _heads(torch.empty(16, 4096, 160, device="meta"), 4)
+    plan = fa.tma_plan((16, 4), _strides(q), 40, 4096)
+    assert plan.dims == (40, 4, 4096, 16) and plan.strides == (80, 320, 4096 * 320)
+    assert plan.box == (64, 1, 128, 1) and plan.order == (1, 2, 3)
+    k = _heads(torch.empty(16, 4280, 160, device="meta"), 4)
+    plan = fa.tma_plan((16, 4), _strides(k), 40, 4280)
+    assert plan.dims == (40, 4, 4280, 16) and plan.strides == (80, 320, 4280 * 320)
+    x = torch.empty(16, 1024, 320, device="meta")
+    plan = fa.tma_plan((16, 4), (x.stride(0), 80, x.stride(1)), 80, 1024)
+    assert plan.dims == (80, 4, 1024, 16) and plan.strides == (160, 640, 1024 * 640)
+    assert plan.order == (1, 2, 3)
+
+
 @pytest.mark.parametrize("batch", [2, 16])
 def test_ff_fits_routes_each_refiner_level(batch):
     """The refiner's ds2 (C=768, inner 3072: clusters of three blocks) goes

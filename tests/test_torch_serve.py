@@ -183,3 +183,25 @@ def test_http_end_to_end(tiny_pipe_port):
         server.shutdown()
         server.server_close()
         server.batcher.close()
+
+
+def test_serve_mesh_on_two_ranks(tiny_pipe_port):
+    """serve(mesh=) on 2 gloo ranks: rank 0 answers a request whose batch
+    (the meta and its padding row) the ranks shared, one row each, through
+    broadcast (metas, seeds); closing the server ends the follower after
+    its one batch. The PNG is one process's image within one uint8 level."""
+    from tests import torch_ranks
+
+    pipe = tiny_pipe_port
+    cfg = tiny_config()
+    g = pipe.cfg.model.grounding_tokenizer
+    meta = {"prompt": "a thing", "phrases": ["a thing"], "locations": [[0.2, 0.2, 0.8, 0.8]],
+            "points": [[0.5, 0.5]], "scribbles": [[0.3] * (g.n_scribble_points * 2)]}
+    kw = dict(steps=4, mis=0.0, sampler="dpm")
+    (png, health), followed = torch_ranks.run_ranks(
+        torch_ranks.serve_mesh, 2, port_config(cfg), dense_params(cfg, seed=5), meta, kw)
+    assert followed == 1 and health["requests"] == 1 and health["batches"] == 1
+    img = decode_png(png)
+    want = pipe.generate_batch([meta, meta], seeds=[7, 7], **kw)[0]
+    assert img.shape == want.shape and int(img.max()) > int(img.min())
+    assert np.abs(img.astype(int) - want.astype(int)).max() <= 1
