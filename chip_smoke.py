@@ -52,6 +52,19 @@ Phases, in order (each prints its lines; any failure exits non-zero):
   ddim       generate with DDIM (20 steps, B=8), then img2img of one of its
              images (strength 0.5 of 50 PLMS steps, B=8): two requests each,
              s/image and launches
+  aot        the program cache (`pipeline.enable_aot`) on the same weights:
+             generate mis=0 (PLMS-50, B=8), mis=0.36 masked, generate_batch
+             DPM-20 of 8 metas with per-row seeds and img2img at 0.5, each
+             captured as a CUDA graph on its first call and replayed: images
+             bit-equal to the eager calls, one capture a variant and no
+             fallback, each capture's launches those of an eager call (for
+             mis=0 and DPM-20 also the plan's); a kohya LoRA merged after
+             the capture reaching the replays; generate(block=False) twice
+             back to back; serve(aot_dir=) PNGs equal to the eager server's;
+             a restarted process loading the kept kernel library without
+             nvcc, and one rebuilding a truncated copy, each with the
+             parent's images; s/image eager against replay, capture seconds,
+             the graphs' pool against the eager MIS request's peak
   refiner    the SDXL-Refiner cascade at its published widths (2.3 B UNet,
              OpenCLIP-bigG, SD VAE at 0.13025) on densified random weights:
              a B=2 forward at 512 px, kernels vs plain_kernels(); the B=16
@@ -1387,10 +1400,12 @@ def phase_unet(torch, dev, cfg, unet_mod, objs1, masked: bool) -> str:
 
 
 def phase_request(torch, pipe, card: str, name: str, meta: dict, mis: float,
-                  must_launch: tuple) -> tuple[str, dict]:
+                  must_launch: tuple, keep: dict | None = None) -> tuple[str, dict]:
     """generate(8 images, 50 steps, `mis`): one warm-up request, then two
     timed requests with the launch counts set to 0 just before them; checks
-    the images and that every kernel of `must_launch` launched."""
+    the images and that every kernel of `must_launch` launched. keep: gets
+    each timed request's images by seed, the faster request's seconds, the
+    launches per request and the peak GiB allocated (for the aot phase)."""
     import numpy as np
 
     from instancediffusion_tpu_torch import kernels
@@ -1400,12 +1415,19 @@ def phase_request(torch, pipe, card: str, name: str, meta: dict, mis: float,
     imgs = pipe.generate(meta, num_images=n_img, steps=STEPS, mis=mis, seed=0)
     warm_s = time.perf_counter() - t0
     kernels.reset_launch_counts()
-    times = []
+    if keep is not None:
+        torch.cuda.reset_peak_memory_stats(pipe.device)
+    times, by_seed = [], {}
     for seed in (1, 2):
         t0 = time.perf_counter()
         imgs = pipe.generate(meta, num_images=n_img, steps=STEPS, mis=mis, seed=seed)
         times.append(time.perf_counter() - t0)
+        by_seed[seed] = imgs
     launches = dict(kernels.LAUNCHES)
+    if keep is not None:
+        keep.update(images=by_seed, seconds=min(times),
+                    launches={k: v // len(times) for k, v in launches.items()},
+                    peak_gib=torch.cuda.max_memory_allocated(pipe.device) / 2**30)
     ff_calls = {"fused_ff_geglu": launches.get("fused_ff_geglu", 0) / len(times),
                 FF_ROUTE: kernels.ROUTES[FF_ROUTE] / len(times)}
     if mis == 0.0 and ff_calls != FF_PER_REQUEST:
@@ -1638,9 +1660,10 @@ def _png_size(data: bytes) -> tuple[int, int]:
     return w, h
 
 
-def _post_all(port: int, seeds) -> list[tuple[float, bytes]]:
-    """POST META with each seed at once (one thread each); (seconds, body)
-    per request, each a 200 image/png reply."""
+def _post_all(port: int, seeds, gap_s: float = 0.0) -> list[tuple[float, bytes]]:
+    """POST META with each seed at once (one thread each; each thread
+    started gap_s after the one before); (seconds, body) per request, each
+    a 200 image/png reply, in seed order."""
     import concurrent.futures
     import urllib.request
 
@@ -1656,7 +1679,11 @@ def _post_all(port: int, seeds) -> list[tuple[float, bytes]]:
         return time.perf_counter() - t0, body
 
     with concurrent.futures.ThreadPoolExecutor(len(seeds)) as ex:
-        return list(ex.map(one, seeds))
+        futs = []
+        for seed in seeds:
+            futs.append(ex.submit(one, seed))
+            time.sleep(gap_s)
+        return [f.result() for f in futs]
 
 
 def phase_serve(torch, pipe, card: str, fused: bool) -> tuple[str, dict]:
@@ -1721,10 +1748,13 @@ def phase_serve(torch, pipe, card: str, fused: bool) -> tuple[str, dict]:
     return line, launches
 
 
-def phase_ddim_img2img(torch, pipe, card: str) -> tuple[str, dict, dict]:
+def phase_ddim_img2img(torch, pipe, card: str,
+                       keep: dict | None = None) -> tuple[str, dict, dict]:
     """generate with DDIM (20 steps, B=8), then img2img of its first image
     (strength 0.5, 50 steps: 25 PLMS steps, B=8); two requests each, the
-    launches of the second."""
+    launches of the second. keep: gets img2img's source image, its images
+    by seed, its faster request's seconds and its launches (for the aot
+    phase)."""
     import numpy as np
 
     from instancediffusion_tpu_torch import kernels
@@ -1736,12 +1766,13 @@ def phase_ddim_img2img(torch, pipe, card: str) -> tuple[str, dict, dict]:
                                              sampler="ddim", seed=s)),
             ("img2img", lambda s: pipe.img2img(out["ddim"][2][0], META, strength=0.5,
                                                num_images=N_IMAGES, steps=STEPS, seed=s))):
-        times = []
+        times, by_seed = [], {}
         for seed in (1, 2):
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             imgs = call(seed)
             times.append(time.perf_counter() - t0)
+            by_seed[seed] = imgs
         if imgs.shape != (N_IMAGES, size, size, 3) or imgs.dtype != np.uint8 \
                 or int(imgs.max()) == int(imgs.min()):
             raise RuntimeError(f"{name}: images {imgs.shape} {imgs.dtype}")
@@ -1750,6 +1781,9 @@ def phase_ddim_img2img(torch, pipe, card: str) -> tuple[str, dict, dict]:
         if missing:
             raise RuntimeError(f"{name}: kernels never launched: {missing}")
         out[name] = (times, launches, imgs)
+        if keep is not None and name == "img2img":
+            keep.update(images=by_seed, seconds=min(times), launches=launches,
+                        src=out["ddim"][2][0])
     (t_d, l_d, _), (t_i, l_i, _) = out["ddim"], out["img2img"]
     line = (f"ddim: generate B={N_IMAGES} DDIM-20 requests {t_d[0]:.3f}s, {t_d[1]:.3f}s "
             f"({min(t_d) / N_IMAGES:.4f} s/image); img2img B={N_IMAGES} strength 0.5 of "
@@ -1757,6 +1791,404 @@ def phase_ddim_img2img(torch, pipe, card: str) -> tuple[str, dict, dict]:
             f"({min(t_i) / N_IMAGES:.4f} s/image) on {card}; launches ddim {l_d}, "
             f"img2img {l_i}")
     return line, l_d, l_i
+
+
+# ---------------------------------------------------------------------------
+# the program cache: CUDA graphs per variant, the kept kernel library
+# ---------------------------------------------------------------------------
+
+AOT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "instancediffusion_tpu_torch", "aot_smoke")
+AOT_CHILD_TIMEOUT = 600  # seconds per restarted process
+AOT_DPM_SEEDS = (tuple(range(8)), tuple(range(8, 16)))
+AOT_SERVE_WAIT_MS = 5000.0  # the batcher's wait: 8 ordered requests form one batch
+AOT_SERVE_GAP_S = 0.25  # between the starts of those requests: they queue in seed order
+
+
+def smoke_pipeline(torch, dev):
+    """The smoke's pipeline: Config() under the "box" preset, random_init
+    (seed 0, with the VAE encoder) on `dev`, every parameter densified."""
+    from instancediffusion_tpu_torch.config import Config, apply_test_preset
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
+
+    pipe = InstanceDiffusionPipeline.random_init(apply_test_preset(Config(), "box"), seed=0,
+                                                 device=dev, vae_encoder=True)
+    densify_(pipe.unet, 1)
+    densify_(pipe.vae, 2)
+    densify_(pipe.clip, 3)
+    return pipe
+
+
+def aot_child(directory: str, expect_npy: str) -> None:
+    """A restarted process on the program cache's `directory`: the smoke's
+    pipeline, enable_aot, then the mis=0 request of seed 1 (captured and
+    replayed). Prints one JSON line: the cache's stats, the library's build
+    seconds, whether the images equal `expect_npy`, and the seconds taken."""
+    import numpy as np
+    import torch
+
+    from instancediffusion_tpu_torch.kernels import _build
+
+    os.environ.setdefault("IDTPU_ALLOW_HASH_TOKENIZER", "1")
+    t0 = time.perf_counter()
+    pipe = smoke_pipeline(torch, torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe.enable_aot(directory)
+    enable_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    imgs = pipe.generate(META, num_images=N_IMAGES, steps=STEPS, mis=0.0, seed=1)
+    first_s = time.perf_counter() - t0
+    print(json.dumps({"stats": pipe._aot.stats, "errors": pipe._aot.errors,
+                      "build_seconds": _build.BUILD_INFO.get("seconds"),
+                      "library": os.path.basename(_build.BUILD_INFO.get("path", "")),
+                      "equal": bool(np.array_equal(imgs, np.load(expect_npy))),
+                      "init_s": init_s, "enable_s": enable_s, "first_s": first_s}), flush=True)
+
+
+def _start_child(directory: str, expect_npy: str, hide_nvcc: bool, log_path: str):
+    """aot_child in a fresh Python process (output to log_path); without
+    nvcc on its PATH or under its CUDA_HOME when `hide_nvcc`."""
+    env = dict(os.environ)
+    if hide_nvcc:
+        env["PATH"] = os.pathsep.join(
+            p for p in env.get("PATH", "").split(os.pathsep)
+            if p and not os.path.exists(os.path.join(p, "nvcc")))
+        env["CUDA_HOME"] = os.path.join(directory, "no_cuda_home")
+    code = f"import chip_smoke; chip_smoke.aot_child({directory!r}, {expect_npy!r})"
+    log_f = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=log_f, stderr=subprocess.STDOUT,
+                            cwd=os.path.dirname(os.path.abspath(__file__)), env=env)
+    return proc, log_f
+
+
+def _child_result(proc, log_f, log_path: str, what: str) -> dict:
+    try:
+        proc.wait(timeout=AOT_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    log_f.close()
+    with open(log_path) as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"aot: the {what} process failed ({proc.returncode}):\n{text[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def _sampler_forwards(sampler: str, alpha: float, steps: int) -> tuple[int, int]:
+    """(gate-1, gate-0) UNet forwards of a whole sampler pass: one a step,
+    PLMS two at its first (the pseudo improved Euler step)."""
+    if sampler == "plms":
+        return _plms_forwards(alpha, steps)
+    from instancediffusion_tpu_torch.ops.schedules import alpha_generator
+
+    on = [g > 0 for g in alpha_generator(steps, [alpha, 0.0, 1.0 - alpha])]
+    return int(sum(on)), len(on) - int(sum(on))
+
+
+def _request_plan(cfg, sampler: str, steps: int, b: int) -> dict:
+    """Kernel launches of the program of a box-preset request of b images
+    without MIS: its UNet forwards at 2b rows (`unet_launches`), UniFusion's
+    ConvNeXt twice (the grounding rows and the null row) and one VAE
+    decode. The text encode runs outside the program."""
+    px = 8 * cfg.model.image_size
+    n1, n0 = _sampler_forwards(sampler, cfg.sampler.alpha, steps)
+    levels, blocks = len(cfg.autoencoder.ch_mult), cfg.autoencoder.num_res_blocks
+    total = collections.Counter({"fused_group_norm": 2 * levels * (blocks + 1) + 6})
+    gcfg = cfg.model.grounding_tokenizer
+    if gcfg.use_segs:  # ConvNeXt's LayerNorms, for the grounding rows and the null row
+        total["fused_layer_norm"] += 2 * (len(gcfg.convnext_depths) + sum(gcfg.convnext_depths))
+    for n, gate in ((n1, True), (n0, False)):
+        for k, v in unet_launches(cfg, px, 2 * b, gate).items():
+            if k != FF_ROUTE:
+                total[k] += n * v
+    return dict(total)
+
+
+def aot_eager_inputs(keep_slice: dict, keep_mis: dict, keep_i2i: dict) -> dict:
+    """What phase_aot compares with, from the `keep` of the slice and mis
+    requests and of img2img: images by seed, seconds and launches per
+    request, the MIS request's peak."""
+    return {"mis0": keep_slice["images"], "mis036": keep_mis["images"],
+            "img2img": keep_i2i["images"], "img2img_src": keep_i2i["src"],
+            "mis_peak_gib": keep_mis["peak_gib"],
+            "seconds": {"mis0": keep_slice["seconds"], "mis036": keep_mis["seconds"],
+                        "img2img": keep_i2i["seconds"]},
+            "launches": {"mis0": keep_slice["launches"], "mis036": keep_mis["launches"],
+                         "img2img": keep_i2i["launches"]}}
+
+
+def phase_aot(torch, pipe, mpipe, card: str, eager: dict) -> tuple[str, dict]:
+    """The program cache on the card: four variants, each eager (from the
+    earlier phases, or here) and under enable_aot(AOT_DIR): generate mis=0
+    (box preset, B=8, PLMS-50), mis=0.36 masked (K1-L in the graph),
+    generate_batch DPM-20 on 8 metas with per-row seeds, img2img at strength
+    0.5. The replayed images bit-equal to the eager ones; one capture a
+    variant and no fallback; each capture's launches those of an eager call
+    (and for mis=0 and DPM-20 the plan's); a kohya LoRA merged after the
+    capture reaching the replays as it reaches the eager calls;
+    generate(block=False) twice back to back, each handle's images those
+    of its blocking call; a restarted process loading the kept library with
+    no nvcc on its path, and another rebuilding a truncated copy, both with
+    the parent's images; serve(aot_dir=) PNGs equal to the eager server's.
+    Returns the line and the launches counted outside the captures."""
+    import gc
+
+    import numpy as np
+
+    from instancediffusion_tpu_torch import kernels, serve
+    from instancediffusion_tpu_torch.io import lora as lora_io
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
+
+    t_phase = time.perf_counter()
+    dev = pipe.device
+    children = []
+    shutil.rmtree(AOT_DIR, ignore_errors=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_aot_")
+    share = lambda p: InstanceDiffusionPipeline(p.cfg, p.unet, p.vae, p.clip, p.tokenizer)
+    apipe, ampipe, spipe, server, variants = share(pipe), share(mpipe), None, None, {}
+    torch.cuda.empty_cache()
+    base_reserved = torch.cuda.memory_reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    try:
+        apipe.enable_aot(AOT_DIR)
+        ampipe.enable_aot(AOT_DIR)
+        kept = [n for n in os.listdir(AOT_DIR) if n.endswith(".so")]
+        if apipe._aot.stats["saves"] != 1 or ampipe._aot.stats["saves"] != 0 or len(kept) != 1:
+            raise RuntimeError(f"aot: enable_aot kept {kept}, stats {apipe._aot.stats} / "
+                               f"{ampipe._aot.stats} (expected one copy of the loaded library)")
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            out = fn()
+            return out, time.perf_counter() - t0
+
+        def same(name, got, want):
+            if got.shape != want.shape or not np.array_equal(got, want):
+                diff = np.abs(got.astype(int) - want.astype(int))
+                raise RuntimeError(f"aot: {name} replay differs from eager (max {diff.max()} "
+                                   f"levels, {int((diff > 0).sum())} values)")
+
+        mis_meta = dict(META, segs=meta_segs())
+        variants.update({
+            "mis0": (apipe, lambda s, p=apipe: p.generate(META, num_images=N_IMAGES, steps=STEPS,
+                                                          mis=0.0, seed=s)),
+            "mis036": (ampipe, lambda s, p=ampipe: p.generate(mis_meta, num_images=N_IMAGES,
+                                                              steps=STEPS, mis=0.36, seed=s)),
+            "dpm20": (apipe, lambda s, p=apipe: p.generate_batch(
+                [META] * N_IMAGES, steps=SERVE_STEPS, sampler="dpm", mis=0.0,
+                seeds=list(AOT_DPM_SEEDS[s - 1]))),
+            "img2img": (apipe, lambda s, p=apipe: p.img2img(
+                eager["img2img_src"], META, strength=0.5, num_images=N_IMAGES, steps=STEPS,
+                seed=s)),
+        })
+        # eager DPM-20 batches here (the serve phase's batches mix requests)
+        eager["dpm20"] = {}
+        eager_s = dict(eager["seconds"])
+        times = []
+        for s in (1, 2):
+            before = collections.Counter(kernels.LAUNCHES)
+            eager["dpm20"][s], t = timed(lambda: variants["dpm20"][1](s, pipe))
+            times.append(t)
+        eager["launches"]["dpm20"] = {k: n - before[k] for k, n in kernels.LAUNCHES.items()
+                                      if n != before[k]}
+        eager_s["dpm20"] = min(times)
+
+        rows, first_s, replay_s, manifests = {}, {}, {}, {}
+        for name, (p, call) in variants.items():
+            n_var = len(p._aot.variants)
+            imgs1, first_s[name] = timed(lambda: call(1))
+            imgs2, replay_s[name] = timed(lambda: call(2))
+            same(f"{name} seed 1 (its capture)", imgs1, eager[name][1])
+            same(f"{name} seed 2", imgs2, eager[name][2])
+            if len(p._aot.variants) != n_var + 1:
+                raise RuntimeError(f"aot: {name} resolved {len(p._aot.variants) - n_var} "
+                                   "variants (expected 1)")
+            manifests[name] = p._aot.variants[list(p._aot.variants)[-1]]
+            rows[name] = p.last_timings
+        stats = {k: apipe._aot.stats[k] + ampipe._aot.stats[k] for k in apipe._aot.stats}
+        if (stats["captures"], stats["replays"], stats["fallbacks"]) != (4, 8, 0):
+            raise RuntimeError(f"aot: stats {stats} (expected 4 captures, 8 replays, no "
+                               f"fallback; errors {apipe._aot.errors + ampipe._aot.errors})")
+        # launches at capture (Python counters do not tick on replay)
+        cfg = pipe.cfg
+        plans = {"mis0": _request_plan(cfg, "plms", STEPS, N_IMAGES),
+                 "dpm20": _request_plan(cfg, "dpm", SERVE_STEPS, N_IMAGES)}
+        # an eager call also encodes its text (outside the program)
+        encode_plan = {"fused_layer_norm": 2 * cfg.text_encoder.num_hidden_layers + 1}
+        for name, m in manifests.items():
+            with_encode = dict(collections.Counter(m["launches"])
+                               + collections.Counter(encode_plan))
+            want = eager["launches"][name]
+            if with_encode != want or (name in plans and m["launches"] != plans[name]):
+                raise RuntimeError(f"aot: the {name} capture launched {m['launches']} (with a "
+                                   f"text encode {with_encode}), an eager call {want}, the "
+                                   f"plan {plans.get(name)}")
+        missing = [k for k in MIS_PATH if manifests["mis036"]["launches"].get(k, 0) <= 0]
+        if missing:
+            raise RuntimeError(f"aot: the masked MIS capture never launched {missing}")
+        pool_gib = sum(m["pool_bytes"] for m in manifests.values()) / 2**30
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+
+        # weights stay arguments: a LoRA merged in place after the capture
+        # reaches the replay as it reaches an eager call
+        snapshot = {k: v.clone() for k, v in pipe.unet.state_dict().items()}
+        try:
+            stats_lora = lora_io.merge_lora(pipe.unet, {k: v.numpy() for k, v in
+                                                         lora_state_dict(torch).items()},
+                                            scale=LORA_SCALE)
+            lora_replay = variants["mis0"][1](1)
+            lora_eager = pipe.generate(META, num_images=N_IMAGES, steps=STEPS, mis=0.0, seed=1)
+        finally:
+            with torch.no_grad():
+                for k, v in pipe.unet.state_dict().items():
+                    v.copy_(snapshot[k])
+            del snapshot
+        same("mis0 after the LoRA merge", lora_replay, lora_eager)
+        if np.array_equal(lora_replay, eager["mis0"][1]):
+            raise RuntimeError("aot: the LoRA merge did not move the replayed images")
+
+        # generate(block=False): two handles enqueued back to back, after
+        # two image buffers of their size have passed through torch's
+        # pinned-memory cache (as in a serving loop's steady state: a new
+        # pinned allocation waits for the device)
+        bufs = [torch.empty((N_IMAGES, pipe.image_size, pipe.image_size, 3), dtype=torch.uint8,
+                            pin_memory=True) for _ in range(2)]
+        del bufs
+        t0 = time.perf_counter()
+        h1 = apipe.generate(META, num_images=N_IMAGES, steps=STEPS, mis=0.0, seed=1,
+                            block=False)
+        h2 = apipe.generate(META, num_images=N_IMAGES, steps=STEPS, mis=0.0, seed=2,
+                            block=False)
+        enqueue_s = time.perf_counter() - t0
+        if "fetch" in h1.timings or "fetch" in h2.timings:
+            raise RuntimeError("aot: a handle fetched before fetch()")
+        a1, a2 = h1.fetch(), h2.fetch()
+        both_s = time.perf_counter() - t0
+        same("block=False seed 1", a1, eager["mis0"][1])
+        same("block=False seed 2", a2, eager["mis0"][2])
+        if np.array_equal(a1, a2):
+            raise RuntimeError("aot: the two handles hold the same images")
+
+        # serve(aot_dir=): the warm-up captures the serving variant. The
+        # requests arrive in seed order and form one batch, as the eager
+        # server's do: cuBLAS may split a GEMM's tiles by position, so a
+        # row's bits can depend on where it sits in the batch
+        served = {}
+        for mode in ("eager", "aot"):
+            spipe = share(pipe)
+            t0 = time.perf_counter()
+            server = serve.serve(spipe, port=0, batch_size=SERVE_B, max_wait_ms=AOT_SERVE_WAIT_MS,
+                                 steps=SERVE_STEPS, sampler="dpm", mis=0.0,
+                                 aot_dir=AOT_DIR if mode == "aot" else None)
+            warm_s = time.perf_counter() - t0
+            try:
+                b0 = server.batcher.batches
+                t0 = time.perf_counter()
+                replies = _post_all(server.server_address[1], list(AOT_DPM_SEEDS[0]),
+                                    gap_s=AOT_SERVE_GAP_S)
+                served[mode] = (warm_s, time.perf_counter() - t0, [b for _, b in replies],
+                                server.batcher.batches - b0,
+                                None if spipe._aot is None else dict(spipe._aot.stats))
+            finally:
+                server.shutdown()
+                server.server_close()
+                server.batcher.close()
+        from instancediffusion_tpu_torch.io.png import png_bytes
+
+        want_pngs = [png_bytes(img) for img in eager["dpm20"][1]]
+        for mode, (_, _, bodies, batches, _) in served.items():
+            if batches != 1 or bodies != want_pngs:
+                from instancediffusion_tpu_torch.data.jpeg import decode_image
+
+                # each differing reply's seed, its max level difference from
+                # that seed's image, and which batch row it equals, if any
+                diffs = []
+                for seed, (got, want) in enumerate(zip(bodies, want_pngs)):
+                    if got != want:
+                        g = decode_image(got).astype(int)
+                        diffs.append((seed, int(np.abs(g - eager["dpm20"][1][seed]).max()),
+                                      [j for j, w in enumerate(want_pngs) if w == got]))
+                raise RuntimeError(f"aot: the {mode} server answered in {batches} batches; "
+                                   f"replies differing from generate_batch's images of the same "
+                                   f"seeds (seed, max levels, equal rows): {diffs}")
+        serve_warm_s, serve_s, _, _, serve_stats = served["aot"]
+        if serve_stats["captures"] != 1 or serve_stats["replays"] < 2 or \
+                serve_stats["fallbacks"] or serve_stats["saves"]:
+            raise RuntimeError(f"aot: serve(aot_dir=) stats {serve_stats}")
+
+        # restarts: the kept library loaded with no nvcc, a truncated copy rebuilt
+        expect = os.path.join(work, "mis0_seed1.npy")
+        np.save(expect, eager["mis0"][1])
+        corrupt = os.path.join(work, "corrupt")
+        shutil.copytree(AOT_DIR, corrupt)
+        [lib_name] = kept
+        with open(os.path.join(corrupt, lib_name), "r+b") as f:
+            f.truncate(4096)
+        children = [(what, *_start_child(d, expect, hide, os.path.join(work, f"{what}.log")),
+                     os.path.join(work, f"{what}.log"))
+                    for what, d, hide in (("restart", AOT_DIR, True),
+                                          ("corrupt", corrupt, False))]
+
+        results = {what: _child_result(proc, f, path, what)
+                   for what, proc, f, path in children}
+        r, c = results["restart"], results["corrupt"]
+        if not (r["equal"] and r["stats"]["loads"] == 1 and r["stats"]["saves"] == 0
+                and r["stats"]["fallbacks"] == 0 and r["build_seconds"] == 0.0):
+            raise RuntimeError(f"aot: the restarted process {r}")
+        if not (c["equal"] and c["stats"]["fallbacks"] == 1 and c["stats"]["saves"] == 1
+                and c["stats"]["loads"] == 0 and c["build_seconds"] > 0):
+            raise RuntimeError(f"aot: the process on the truncated library {c}")
+        with open(os.path.join(corrupt, lib_name), "rb") as f:
+            rebuilt = len(f.read())
+        if rebuilt <= 4096:
+            raise RuntimeError("aot: the truncated library was not replaced")
+
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        for _, proc, f, _ in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+        # the graphs go with the pipelines (the loop's `p` and `call` held one)
+        apipe = ampipe = spipe = server = variants = p = call = None
+        gc.collect()  # a pipeline and its programs' closures form a cycle
+        torch.cuda.empty_cache()
+        shutil.rmtree(work, ignore_errors=True)
+    released_gib = (torch.cuda.memory_reserved(dev) - base_reserved) / 2**30
+    names = {"mis0": f"generate PLMS-{STEPS} mis=0", "mis036": f"generate PLMS-{STEPS} "
+             "mis=0.36 masked", "dpm20": f"generate_batch DPM-{SERVE_STEPS}",
+             "img2img": f"img2img 0.5 of PLMS-{STEPS}"}
+    per = "; ".join(
+        f"{names[n]}: eager {eager_s[n] / N_IMAGES:.4f} s/image, replay "
+        f"{replay_s[n] / N_IMAGES:.4f} s/image, first call {first_s[n]:.2f}s of which capture "
+        f"{manifests[n]['capture_s']:.2f}s and instantiate {manifests[n]['instantiate_s']:.2f}s, "
+        f"pool +{manifests[n]['pool_bytes'] / 2**30:.2f} GiB, graph nodes "
+        f"{manifests[n]['nodes']}" for n in names)
+    line = (f"aot: {per}; stats {stats}; pool {pool_gib:.2f} GiB, phase peak allocated "
+            f"{peak_gib:.2f} GiB against the eager MIS request's {eager['mis_peak_gib']:.2f} GiB "
+            f"(reserved {released_gib:+.2f} GiB after the graphs' release); captured launches "
+            f"as eager and as the plan "
+            f"(mis0 {plans['mis0']}); LoRA ({stats_lora['applied_unet']} UNet modules) merged "
+            f"after capture moves the replay as eager; block=False: two handles dispatched "
+            f"{h1.timings['dispatch']:.4f}s + {h2.timings['dispatch']:.4f}s (programs enqueued "
+            f"{h1.timings['enqueue']:.4f}s, {h2.timings['enqueue']:.4f}s; both calls "
+            f"{enqueue_s:.3f}s), both fetched {both_s:.3f}s against a blocking replay's sample "
+            f"{rows['mis0'].get('sample', float('nan')):.3f}s; restart without nvcc: loads 1, "
+            f"saves 0, build 0 s, init {r['init_s']:.1f}s, enable_aot {r['enable_s']:.2f}s, "
+            f"first request {r['first_s']:.1f}s, images equal; truncated library: fallbacks 1, "
+            f"rebuilt {c['build_seconds']:.1f}s ({rebuilt} bytes), images equal; "
+            f"serve(aot_dir=) warm-up {serve_warm_s:.2f}s (eager server "
+            f"{served['eager'][0]:.2f}s), 8 ordered POSTs as one batch {serve_s:.3f}s (eager "
+            f"{served['eager'][1]:.3f}s), PNGs equal to the eager server's and to "
+            f"generate_batch's, stats {serve_stats}; on {card}; phase "
+            f"{time.perf_counter() - t_phase:.1f}s")
+    return line, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3428,10 +3860,7 @@ def main() -> int:
     phase_routes(torch, dev)
     cfg = apply_test_preset(Config(), "box")
     t0 = time.perf_counter()
-    pipe = InstanceDiffusionPipeline.random_init(cfg, seed=0, device=dev, vae_encoder=True)
-    densify_(pipe.unet, 1)
-    densify_(pipe.vae, 2)
-    densify_(pipe.clip, 3)
+    pipe = smoke_pipeline(torch, dev)
     torch.cuda.synchronize()
     log(f"init: random_init + densify {time.perf_counter() - t0:.1f}s")
     line, objs = phase_grounding(torch, dev, cfg, pipe.unet)
@@ -3439,7 +3868,9 @@ def main() -> int:
     log(phase_unet(torch, dev, cfg, pipe.unet, objs, masked=False))
     log(phase_unet(torch, dev, cfg, pipe.unet, objs, masked=True))
     log(phase_fused_unet(torch, dev, cfg, pipe.unet, objs))
-    line, launches_plain = phase_request(torch, pipe, card, "slice", META, 0.0, PLAIN_PATH)
+    keep_slice, keep_mis, keep_i2i = {}, {}, {}
+    line, launches_plain = phase_request(torch, pipe, card, "slice", META, 0.0, PLAIN_PATH,
+                                         keep=keep_slice)
     log(line)
 
     # the paper's default sampling: MIS (mis=0.36) with the fusers masked by
@@ -3448,7 +3879,7 @@ def main() -> int:
     mcfg = dataclasses.replace(mcfg, model=dataclasses.replace(mcfg.model, use_masked_att=True))
     mpipe = InstanceDiffusionPipeline(mcfg, pipe.unet, pipe.vae, pipe.clip, pipe.tokenizer)
     line, launches_mis = phase_request(torch, mpipe, card, "mis", dict(META, segs=meta_segs()),
-                                       0.36, MIS_PATH)
+                                       0.36, MIS_PATH, keep=keep_mis)
     log(line)
 
     # the serving path (generate_batch, DPM-20, batch 8) on the FUSED_PROJ
@@ -3457,8 +3888,15 @@ def main() -> int:
     log(line)
     line, launches_serve_unfused = phase_serve(torch, pipe, card, fused=False)
     log(line)
-    line, launches_ddim, launches_i2i = phase_ddim_img2img(torch, pipe, card)
+    line, launches_ddim, launches_i2i = phase_ddim_img2img(torch, pipe, card, keep=keep_i2i)
     log(line)
+
+    # the program cache: the same variants captured as CUDA graphs and
+    # replayed, the kept kernel library across restarts
+    eager = aot_eager_inputs(keep_slice, keep_mis, keep_i2i)
+    line, launches_aot = phase_aot(torch, pipe, mpipe, card, eager)
+    log(line)
+    del eager, keep_slice, keep_mis, keep_i2i
 
     # the SDXL-Refiner cascade at its published widths
     line, launches_refiner = phase_refiner(torch, dev, card)
@@ -3515,7 +3953,7 @@ def main() -> int:
                    "trainer": launches_trainer.get(name, 0),
                    "refiner": launches_refiner.get(name, 0),
                    "eval": launches_eval.get(name, 0), "datagen": launches_datagen.get(name, 0),
-                   "dist": launches_dist.get(name, 0)}
+                   "dist": launches_dist.get(name, 0), "aot": launches_aot.get(name, 0)}
         entry = {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -1,10 +1,11 @@
 """PIL's `Image.resize` for 8-bit images, bit for bit, in numpy: what the
 training loader's crops need (BOX halving, BICUBIC to the target size,
-NEAREST for instance masks) and the CLI's `--img2img` (LANCZOS) without an
-imaging library. The passes run in the native library (`resize`);
+NEAREST for instance masks), the CLI's `--img2img` (LANCZOS) and the
+labeling zoo's resizes (BILINEAR for GroundingDINO, RAM's BICUBIC, Pillow's
+default for RGB) without an imaging library. The passes run in the native library (`resize`);
 `resize_numpy` is the same in numpy.
 
-BOX, BICUBIC and LANCZOS follow Pillow's `Resample.c`:
+BOX, BILINEAR, BICUBIC and LANCZOS follow Pillow's `Resample.c`:
   * two passes, horizontal then vertical, each rounded to uint8; a pass
     whose size does not change is skipped, and the horizontal pass covers
     only the rows the vertical filter reads
@@ -12,8 +13,9 @@ BOX, BICUBIC and LANCZOS follow Pillow's `Resample.c`:
     * max(scale, 1), taps from int(center - support + 0.5) to
     int(center + support + 0.5) clipped to the input, weights
     filter((j - center + 0.5) / max(scale, 1)) normalised by their sum
-    (BOX: 1 on (-0.5, 0.5]; BICUBIC: Keys' cubic with a = -0.5; LANCZOS:
-    sinc(x) * sinc(x / 3) on [-3, 3))
+    (BOX: 1 on (-0.5, 0.5]; BILINEAR: the triangle 1 - |x| on (-1, 1);
+    BICUBIC: Keys' cubic with a = -0.5; LANCZOS: sinc(x) * sinc(x / 3) on
+    [-3, 3))
   * weights fixed to 22 fractional bits, rounded half away from zero;
     sums started at 1 << 21, shifted right by 22 and clipped to 0..255
 NEAREST is Pillow's affine scaling: source index int(x_i), x_0 = in / out / 2,
@@ -27,12 +29,17 @@ import math
 
 import numpy as np
 
-BOX, BICUBIC, LANCZOS, NEAREST = "box", "bicubic", "lanczos", "nearest"
+BOX, BILINEAR, BICUBIC, LANCZOS, NEAREST = "box", "bilinear", "bicubic", "lanczos", "nearest"
 PRECISION_BITS = 32 - 8 - 2
 
 
 def _box(x: np.ndarray) -> np.ndarray:
     return ((x > -0.5) & (x <= 0.5)).astype(np.float64)
+
+
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
 
 
 def _bicubic(x: np.ndarray) -> np.ndarray:
@@ -52,7 +59,8 @@ def _lanczos(x: np.ndarray) -> np.ndarray:
     return np.where((x >= -3.0) & (x < 3.0), _sinc(x) * _sinc(x / 3), 0.0)
 
 
-_FILTERS = {BOX: (_box, 0.5), BICUBIC: (_bicubic, 2.0), LANCZOS: (_lanczos, 3.0)}
+_FILTERS = {BOX: (_box, 0.5), BILINEAR: (_bilinear, 1.0), BICUBIC: (_bicubic, 2.0),
+            LANCZOS: (_lanczos, 3.0)}
 
 
 def coefficients(in_size: int, out_size: int, method: str) -> tuple[np.ndarray, np.ndarray]:
@@ -103,8 +111,8 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
 
 def resize(img: np.ndarray, size: tuple[int, int], method: str) -> np.ndarray:
     """`Image.fromarray(img).resize(size, method)` as an array: img (H, W, 3)
-    or (H, W) uint8, size (width, height) as PIL takes it. The BOX, BICUBIC
-    and LANCZOS passes run in the native library (`native/resample.cpp`)."""
+    or (H, W) uint8, size (width, height) as PIL takes it. The BOX, BILINEAR,
+    BICUBIC and LANCZOS passes run in the native library (`native/resample.cpp`)."""
     from instancediffusion_tpu_torch.data._native import resample_pass
 
     return _resize(img, size, method, resample_pass)

@@ -24,11 +24,10 @@ Shipped implementations:
     the port's CLIP tower on the card, one batched encode per set of new
     phrases.
 
-Adapters for the real zoo models are user-side glue: wrap each model in a
-function with the Protocol signature below and hand it to LabelingPipeline
-— no other integration point exists or is needed. (The JAX package's
-`backends_zoo.py` adapters need downloaded model weights and are not
-ported.)
+Adapters for the real zoo models (RAM, GroundingDINO, SAM, BLIP-2) are in
+`datagen/backends_zoo.py`, with `build_zoo_pipeline`; any other model is
+wrapped in a function with the Protocol signature below and handed to
+LabelingPipeline.
 """
 
 from __future__ import annotations

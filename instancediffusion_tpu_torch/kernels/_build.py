@@ -6,7 +6,10 @@ all started together, links the objects into one library in
 `build/instancediffusion_tpu_torch/<hash of the sources>/` at the root of
 the checkout and loads it; later calls (and later processes, while the
 sources are unchanged) reuse that library. A missing nvcc or a failed build
-raises: there is no fallback.
+raises: there is no fallback. Under `pipeline.enable_aot(directory)` the
+library is kept in that directory instead (`aot.AOTProgramCache`), under a
+name keyed by the sources, the flags, nvcc's version, torch's and its CUDA
+version and the card's compute capability.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ NVCC_FLAGS = [
 ]
 
 _LIB: ctypes.CDLL | None = None
+LIB_PATH: Path | None = None  # the file _LIB was loaded from
 BUILD_INFO: dict = {}
+_NVCC_VERSION: str | None = None
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -75,13 +80,23 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
-    out_dir = BUILD_ROOT / source_hash()
-    lib = out_dir / LIB_NAME
-    if lib.exists():
-        BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True)
-        return lib
+def nvcc_version() -> str:
+    """The last line of `nvcc --version` (its build tag), read once a
+    process; raises without nvcc."""
+    global _NVCC_VERSION
+    if _NVCC_VERSION is None:
+        out = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True,
+                             check=True).stdout
+        _NVCC_VERSION = out.strip().splitlines()[-1]
+    return _NVCC_VERSION
+
+
+def compile_library(out_dir: Path) -> tuple[Path, float]:
+    """Compile every source with nvcc (one process each, all started
+    together) and link them into a library in a fresh temporary directory
+    under `out_dir`; writes `out_dir/build.log`. Returns (the library in
+    its temporary directory, seconds): the caller moves it into place with
+    os.replace and removes the directory. Raises on a failed build."""
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
@@ -112,27 +127,71 @@ def build() -> Path:
     if failed:
         shutil.rmtree(tmp_dir, ignore_errors=True)
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    BUILD_INFO.update(log=log)
+    return tmp_lib, seconds
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True)
+        return lib
+    tmp_lib, seconds = compile_library(out_dir)
     os.replace(tmp_lib, lib)  # atomic: a process building at the same time sees all or nothing
-    shutil.rmtree(tmp_dir, ignore_errors=True)
-    BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False, log=log)
+    shutil.rmtree(tmp_lib.parent, ignore_errors=True)
+    BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False)
     return lib
+
+
+def probe(path) -> str | None:
+    """Load the library at `path` in a throwaway process: None when it
+    loads, else why not. A damaged shared object can kill the process that
+    maps it (a truncated one raises SIGBUS inside dlopen), so a file of
+    unknown health is tried there first."""
+    import sys
+
+    proc = subprocess.run([sys.executable, "-c", "import ctypes, sys; ctypes.CDLL(sys.argv[1])",
+                           str(path)], capture_output=True, text=True, timeout=120)
+    if proc.returncode == 0:
+        return None
+    return f"exit {proc.returncode}: {proc.stderr.strip()[-500:]}"
+
+
+def bind(path) -> ctypes.CDLL:
+    """Load the library at `path` and set the argument types of every
+    exported function; raises OSError (not a loadable library) or
+    AttributeError (a function missing)."""
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    handle.idt_error_string.argtypes = [ctypes.c_int]
+    handle.idt_error_string.restype = ctypes.c_char_p
+    for name in ("idt_flash_encode_us", "idt_flash_bwd_encode_us"):
+        getattr(handle, name).argtypes = []
+        getattr(handle, name).restype = ctypes.c_double
+    return handle
+
+
+def install(handle: ctypes.CDLL, path) -> None:
+    """Make `handle` (loaded from `path`) the library every wrapper calls."""
+    global _LIB, LIB_PATH
+    _LIB, LIB_PATH = handle, Path(path)
+
+
+def loaded() -> bool:
+    """Whether this process has loaded a kernel library."""
+    return _LIB is not None
 
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    global _LIB
     if _LIB is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        handle.idt_error_string.argtypes = [ctypes.c_int]
-        handle.idt_error_string.restype = ctypes.c_char_p
-        for name in ("idt_flash_encode_us", "idt_flash_bwd_encode_us"):
-            getattr(handle, name).argtypes = []
-            getattr(handle, name).restype = ctypes.c_double
-        _LIB = handle
+        path = build()
+        install(bind(path), path)
     return _LIB
 
 

@@ -15,11 +15,21 @@ quantisation (floor) on the device.
 path, `serve.py`), optionally over a ("data", "model") mesh of ranks
 (`parallel/`); `img2img` encodes an image, noises it to a mid-schedule
 step and runs the rest of the PLMS schedule.
+
+Each of the three calls draws one program boundary, where JAX draws its
+jitted `sample_fn`: the text encode, the host grounding prep and the noise
+draws stay outside; UniFusion and the instance labels, the sampler loop, the
+VAE decode and the quantisation run inside, as one call of
+`program(grounding rows, context rows, ..., x_init) -> uint8 images`. With
+`enable_aot(directory)` each program variant is captured once as a CUDA
+graph and replayed after (`aot.py`); `generate(block=False)` returns a
+`PendingImages` handle as soon as the program is enqueued.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 import time
 
 import numpy as np
@@ -34,6 +44,7 @@ from instancediffusion_tpu_torch.data.grounding_input import (
 from instancediffusion_tpu_torch.data.tokenizer import CLIPTokenizer
 from instancediffusion_tpu_torch.kernels.flash_attention import instance_labels
 from instancediffusion_tpu_torch.models import clip_text, unet, unifusion, vae
+from instancediffusion_tpu_torch.nn.core import kernels_enabled as core_kernels_enabled
 from instancediffusion_tpu_torch.ops.instance_mask import rasterize_boxes
 from instancediffusion_tpu_torch.ops.schedules import make_diffusion_schedule
 from instancediffusion_tpu_torch.parallel import mesh as mesh_mod
@@ -53,6 +64,34 @@ _SAMPLERS = {
     "dpm": (make_dpm_schedule, dpm_sample),
     "ddim": (make_ddim_schedule, ddim_sample),
 }
+
+
+class PendingImages:
+    """Handle `generate(..., block=False)` returns: the program and a copy of
+    its images into a pinned host buffer owned by the handle are enqueued on
+    the device's stream, and an event recorded after the copy. Later calls
+    (which may overwrite a replayed graph's output buffer) do not touch the
+    handle's images; `fetch` waits on the event only. The first fetch copies
+    the images out and frees the pinned buffer, so torch's pinned-memory
+    cache hands it to a later handle (a new pinned allocation,
+    cudaHostAlloc, would wait for the device)."""
+
+    def __init__(self, host_images: torch.Tensor, event, timings: dict):
+        self.host_images = host_images
+        self.event = event
+        self.timings = timings
+        self._out: np.ndarray | None = None
+
+    def fetch(self) -> np.ndarray:
+        """Wait for the copy and return the (B, H, W, 3) uint8 images."""
+        if self._out is None:
+            t0 = time.perf_counter()
+            if self.event is not None:
+                self.event.synchronize()
+            self._out = self.host_images.numpy().copy()
+            self.host_images = None
+            self.timings["fetch"] = time.perf_counter() - t0
+        return self._out
 
 
 def default_dtype(device) -> torch.dtype:
@@ -94,6 +133,9 @@ class InstanceDiffusionPipeline:
         # (key, this rank's tensor-parallel UNet) of the last mesh with a
         # "model" axis (`generate_batch(mesh=)`)
         self._tp_unet = None
+        # the program cache (`enable_aot`) and its wrapped programs by key
+        self._aot = None
+        self._programs: dict = {}
 
     @property
     def image_size(self) -> int:
@@ -157,11 +199,23 @@ class InstanceDiffusionPipeline:
             # refuses unless IDTPU_ALLOW_HASH_TOKENIZER=1
             self.tokenizer.require_real("prompt encoding")
 
+    def _upload(self, a: np.ndarray, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """A host array on the pipeline's device (as `dtype`, converted on
+        the host). On the card the copy goes through pinned memory and does
+        not block: a blocking copy waits for everything enqueued before it,
+        such as the program of an earlier generate(block=False)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dtype is not None:
+            t = t.to(dtype)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _encode(self, texts: list[str]) -> tuple[torch.Tensor, torch.Tensor]:
         """One batched CLIP encode: (last_hidden_state, fp32 pooler_output)."""
         self._check_tokenizer()
         ids = np.stack([self.tokenizer.encode(t) for t in texts])
-        enc = clip_text.apply_clip_text(self.clip, torch.from_numpy(ids).long().to(self.device))
+        enc = clip_text.apply_clip_text(self.clip, self._upload(ids, torch.long))
         return enc["last_hidden_state"], enc["pooler_output"].float()
 
     @torch.inference_mode()
@@ -195,7 +249,7 @@ class InstanceDiffusionPipeline:
         # the grounding stays fp32, so UniFusion and its ConvNeXt run in fp32
         # on the compute-dtype weights, as in the JAX pipeline (the Fourier
         # features reach frequencies of ~75 rad per unit of box coordinate)
-        g = {key: torch.from_numpy(v).to(self.device, torch.float32)
+        g = {key: self._upload(v, torch.float32)
              for key, v in g_np.items()}
         if k:
             n_slots = min(len(meta["locations"]), k, mcfg.max_objs)
@@ -276,7 +330,7 @@ class InstanceDiffusionPipeline:
         mcfg = self.cfg.model
         shape = (mcfg.image_size, mcfg.image_size, mcfg.in_channels)
         if initial_latents is not None:
-            x = torch.as_tensor(np.asarray(initial_latents), device=self.device).to(self.dtype)
+            x = self._upload(np.asarray(initial_latents)).to(self.dtype)
             if tuple(x.shape) != (b, *shape):
                 raise ValueError(f"initial_latents shape {tuple(x.shape)} != {(b, *shape)}")
             return x
@@ -286,23 +340,81 @@ class InstanceDiffusionPipeline:
         x = randn(b, seeds) if isinstance(seeds, int) else torch.cat([randn(1, s) for s in seeds])
         return x.to(self.dtype)
 
-    def _finish(self, z: torch.Tensor, timings: dict, t_sample: float, mesh=None,
-                n: int | None = None) -> np.ndarray:
-        """VAE decode and uint8 quantisation on the device ([-1, 1] ->
-        uint8 with floor, the reference's numpy astype truncation); with a
-        mesh, every data rank's images in rank order, the first `n` kept;
-        records the sampling and fetch times."""
+    # -- the program boundary ------------------------------------------------
+
+    def enable_aot(self, directory: str, save: bool = True) -> None:
+        """Opt into the program cache (`aot.AOTProgramCache`): every
+        sampling program variant of `generate`, `generate_batch` (without a
+        mesh) and `img2img` is captured once as a CUDA graph on its first
+        call and replayed after; on the card the kernel library is loaded
+        from `directory` (or built and kept there, or copied there when this
+        process has already loaded it). Call before the first generate, as
+        in JAX."""
+        from instancediffusion_tpu_torch.aot import AOTProgramCache
+
+        self._aot = AOTProgramCache(directory, save=save)
+        self._programs = {}  # re-wrap variants made before opt-in
+        if self.device.type == "cuda":
+            self._aot.ensure_library(torch.cuda.get_device_capability(self.device))
+
+    def _variant_key(self, program: str, sampler: str, sched, **static) -> tuple:
+        """Every Python value a program freezes into a capture: which
+        program, the sampler and its whole schedule (steps, gate schedule,
+        coefficients), the model config, the compute dtype, the kernel and
+        projection routes, and the caller's `static` values (guidance scale,
+        trajectory count, MIS step and merge, img2img's start step)."""
+        digest = hashlib.sha256()
+        for name in sorted(vars(sched)):
+            digest.update(name.encode() + np.ascontiguousarray(getattr(sched, name)).tobytes())
+        return (("sampler", sampler), ("program", program), ("steps", sched.num_steps),
+                ("gates", tuple(float(g) for g in sched.gates)),
+                ("schedule", digest.hexdigest()[:16]),
+                ("config", hashlib.sha256(repr(self.cfg).encode()).hexdigest()[:16]),
+                ("dtype", str(self.dtype)), ("kernels", core_kernels_enabled()),
+                ("fused_proj", unet.FUSED_PROJ), *sorted(static.items()))
+
+    def _run_program(self, key: tuple, program, *args) -> torch.Tensor:
+        """program(*args) -> uint8 images on the device, through the program
+        cache when it is on."""
+        if self._aot is None:
+            return program(*args)
+        if key not in self._programs:
+            self._programs[key] = self._aot.wrap(key, program)
+        return self._programs[key](*args)
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
+        """VAE decode and uint8 quantisation on the device ([-1, 1] -> uint8
+        with floor, the reference's numpy astype truncation)."""
         img = vae.vae_decode(self.vae, z.to(self.dtype))
-        img = torch.floor((img.float().clamp(-1.0, 1.0) * 0.5 + 0.5) * 255.0).to(torch.uint8)
+        return torch.floor((img.float().clamp(-1.0, 1.0) * 0.5 + 0.5) * 255.0).to(torch.uint8)
+
+    def _finish(self, img: torch.Tensor, timings: dict, t_sample: float, mesh=None,
+                n: int | None = None, block: bool = True):
+        """The images of a program: with a mesh, every data rank's images in
+        rank order, the first `n` kept; records the sampling and fetch
+        times. block=False: a PendingImages handle, its copy to pinned host
+        memory enqueued after the program (`timings["enqueue"]` up to the
+        program's return, `timings["dispatch"]` up to the handle's)."""
         if mesh is not None:
             img = mesh_mod.gather_rows(mesh, img, n)
+        self.last_timings = timings
+        if not block:
+            timings["enqueue"] = time.perf_counter() - t_sample  # the program alone
+            if img.is_cuda:
+                host = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+                host.copy_(img, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(img.device))
+            else:
+                host, event = img.clone(), None
+            timings["dispatch"] = time.perf_counter() - t_sample
+            return PendingImages(host, event, timings)
         if img.is_cuda:
             torch.cuda.synchronize(img.device)
         timings["sample"] = time.perf_counter() - t_sample
         t0 = time.perf_counter()
         out = img.cpu().numpy()
         timings["fetch"] = time.perf_counter() - t0
-        self.last_timings = timings
         return out
 
     @torch.inference_mode()
@@ -311,14 +423,19 @@ class InstanceDiffusionPipeline:
                  alpha: float | None = None, mis: float | None = None,
                  seed: int | None = None, negative_prompt: str | None = None,
                  sampler: str | None = None,
-                 initial_latents: np.ndarray | None = None) -> np.ndarray:
+                 initial_latents: np.ndarray | None = None,
+                 block: bool = True) -> np.ndarray | PendingImages:
         """meta: demo dict (prompt, phrases, locations[, points, scribbles,
         polygons, segs, alpha_type]). Returns (num_images, H, W, 3) uint8.
 
         sampler: 'plms' (the reference protocol), 'dpm' (DPM-Solver++(2M),
         for about 20 steps) or 'ddim'. mis: fraction of the steps run as
         Multi-Instance Sampler trajectories; unset, the config's (0.36) under
-        PLMS and 0 under the others, which do not support it."""
+        PLMS and 0 under the others, which do not support it.
+
+        block=False returns a PendingImages handle as soon as the program
+        and the copy of its images to the host are enqueued; its fetch()
+        waits for them. Calls may be enqueued back to back."""
         scfg = self.cfg.sampler
         num_images = num_images or scfg.num_images
         steps = steps or scfg.steps
@@ -349,28 +466,35 @@ class InstanceDiffusionPipeline:
         g_rows += [self._grounding_row(prepare_instance_meta(meta, i), pooled[i:i + 1])
                    for i in range(num_traj - 1)]
         ctx_rows = torch.cat([context, last[2:2 + num_traj - 1]])
-        # on the distinct rows only; every image of a row shares them
-        objs_rows, labels_rows = self._conditioning(stack_groundings(g_rows))
-        null = self._null_conditioning(uc)
-        b = num_images
-        x_init = self._latents(initial_latents, b, seed)
+        x_init = self._latents(initial_latents, num_images, seed)
         timings["grounding_prep"] = time.perf_counter() - t0
 
-        def rows_fn(rows: slice):
-            """CFG over the grounding rows `rows`, each repeated for the B
-            images (trajectory-major)."""
-            rep = lambda t: t[rows].repeat_interleave(b, dim=0)
-            labels = None if labels_rows is None else tuple(rep(a) for a in labels_rows)
-            return self._cfg_model_fn(rep(ctx_rows), rep(objs_rows), labels, null, gs)
+        def program(g, ctx_rows, uc, x_init):
+            # on the distinct rows only; every image of a row shares them
+            objs_rows, labels_rows = self._conditioning(g)
+            null = self._null_conditioning(uc)
+            b = x_init.shape[0]
 
+            def rows_fn(rows: slice):
+                """CFG over the grounding rows `rows`, each repeated for the
+                B images (trajectory-major)."""
+                rep = lambda t: t[rows].repeat_interleave(b, dim=0)
+                labels = None if labels_rows is None else tuple(rep(a) for a in labels_rows)
+                return self._cfg_model_fn(rep(ctx_rows), rep(objs_rows), labels, null, gs)
+
+            global_fn = rows_fn(slice(0, 1))
+            if mis_step:
+                z = mis_sample(rows_fn(slice(0, num_traj)), global_fn, sched, x_init, num_traj,
+                               mis_step)
+            else:
+                z = _SAMPLERS[sampler][1](global_fn, sched, x_init)
+            return self._decode(z)
+
+        key = self._variant_key("generate", sampler, sched, gs=gs, num_traj=num_traj,
+                                mis_step=mis_step, merge="mean")
         t_sample = time.perf_counter()
-        global_fn = rows_fn(slice(0, 1))
-        if mis_step:
-            z = mis_sample(rows_fn(slice(0, num_traj)), global_fn, sched, x_init, num_traj,
-                           mis_step)
-        else:
-            z = _SAMPLERS[sampler][1](global_fn, sched, x_init)
-        return self._finish(z, timings, t_sample)
+        img = self._run_program(key, program, stack_groundings(g_rows), ctx_rows, uc, x_init)
+        return self._finish(img, timings, t_sample, block=block)
 
     @torch.inference_mode()
     def generate_batch(self, metas: list[dict], steps: int | None = None,
@@ -396,7 +520,8 @@ class InstanceDiffusionPipeline:
         (one text encode, grounding and UniFusion, replicated, as JAX
         encodes the batch unsharded before it shards), then samples only
         its rows; row i's noise still comes from seeds[i]. With "model" > 1
-        the UNet runs tensor-parallel.
+        the UNet runs tensor-parallel. With a mesh the program runs eagerly,
+        also under `enable_aot`.
         Returns (len(metas), H, W, 3) uint8."""
         scfg = self.cfg.sampler
         steps = steps or scfg.steps
@@ -442,18 +567,14 @@ class InstanceDiffusionPipeline:
         grounding = stack_groundings([
             self._grounding_row(m, pooled[off:off + k])
             for m, off, k in zip(metas, phrase_off, counts)])
-        objs, labels = self._conditioning(grounding)
-        null = self._null_conditioning(last[b:b + 1])
         # this rank's rows of the batch (all of them without a mesh)
         rows = mesh_mod.row_slice(mesh, b)
         x_init = self._latents(initial_latents, b, seeds)[rows]
-        labels_r = None if labels is None else tuple(a[rows] for a in labels)
-        global_fn = self._cfg_model_fn(last[rows], objs[rows], labels_r, null, gs, mesh)
-        traj_fn = traj_weights = None
+        mis_args = ()
         if num_traj > 1 and mis_step > 0:
             # trajectory-major stacks: rows [j*b, (j+1)*b) hold trajectory j
-            # (trajectory 0 = the per-meta conditioning above); trajectory
-            # j+1 of image i is its instance j alone, or padding
+            # (trajectory 0 = the per-meta conditioning); trajectory j+1 of
+            # image i is its instance j alone, or padding
             null_row = unifusion.null_grounding(1, mcfg.max_objs, mcfg.grounding_tokenizer,
                                                 device=self.device)
             g_rows, ctx_idx = [], list(range(b))
@@ -467,31 +588,46 @@ class InstanceDiffusionPipeline:
                     else:
                         g_rows.append(null_row)
                         ctx_idx.append(b)  # the negative prompt's row
-            objs_t, labels_t = self._conditioning(stack_groundings(g_rows))
-            objs_s = torch.cat([objs, objs_t])
-            labels_s = None if labels is None else tuple(
-                torch.cat([a, t]) for a, t in zip(labels, labels_t))
-            ctx_s = last[torch.as_tensor(ctx_idx, device=self.device)]
             w = np.ones((num_traj, b), np.float32)
             for i, k in enumerate(counts):
                 w[1 + k:, i] = 0.0
+            if mesh is not None:  # this rank's rows of every trajectory
+                w = w[:, rows]
+            mis_args = (stack_groundings(g_rows),
+                        last[self._upload(np.asarray(ctx_idx, np.int64))],
+                        self._upload(w))
+        timings["grounding_prep"] = time.perf_counter() - t0
+
+        def program(grounding, ctx, uc, x_init, *mis_args):
+            objs, labels = self._conditioning(grounding)
+            null = self._null_conditioning(uc)
+            labels_r = None if labels is None else tuple(a[rows] for a in labels)
+            global_fn = self._cfg_model_fn(ctx[rows], objs[rows], labels_r, null, gs, mesh)
+            if not mis_args:
+                return self._decode(_SAMPLERS[sampler][1](global_fn, sched, x_init))
+            g_traj, ctx_s, traj_weights = mis_args
+            objs_t, labels_t = self._conditioning(g_traj)
+            objs_s = torch.cat([objs, objs_t])
+            labels_s = None if labels is None else tuple(
+                torch.cat([a, t]) for a, t in zip(labels, labels_t))
             if mesh is not None:  # this rank's rows of every trajectory
                 keep = torch.arange(num_traj * b, device=self.device).view(num_traj, b)
                 keep = keep[:, rows].reshape(-1)
                 ctx_s, objs_s = ctx_s[keep], objs_s[keep]
                 labels_s = None if labels_s is None else tuple(a[keep] for a in labels_s)
-                w = w[:, rows]
             traj_fn = self._cfg_model_fn(ctx_s, objs_s, labels_s, null, gs, mesh)
-            traj_weights = torch.from_numpy(np.ascontiguousarray(w)).to(self.device)
-        timings["grounding_prep"] = time.perf_counter() - t0
+            return self._decode(mis_sample(traj_fn, global_fn, sched, x_init, num_traj,
+                                           mis_step, traj_weights=traj_weights))
 
+        args = (grounding, last[:b], last[b:b + 1], x_init, *mis_args)
         t_sample = time.perf_counter()
-        if traj_fn is not None:
-            z = mis_sample(traj_fn, global_fn, sched, x_init, num_traj, mis_step,
-                           traj_weights=traj_weights)
+        if mesh is None:
+            key = self._variant_key("generate_batch", sampler, sched, gs=gs, num_traj=num_traj,
+                                    mis_step=mis_step, merge="mean")
+            img = self._run_program(key, program, *args)
         else:
-            z = _SAMPLERS[sampler][1](global_fn, sched, x_init)
-        return self._finish(z, timings, t_sample, mesh, n_meta)
+            img = program(*args)
+        return self._finish(img, timings, t_sample, mesh, n_meta)
 
     @torch.inference_mode()
     def img2img(self, image: np.ndarray, meta: dict, strength: float = 0.5,
@@ -546,25 +682,30 @@ class InstanceDiffusionPipeline:
         last, pooled = self._encode([meta["prompt"], neg] + list(meta["phrases"]))
         timings["text_encode"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        # the context repeated per image; one grounding row for all images
-        objs, labels = self._conditioning(self._grounding_row(meta, pooled[2:2 + k]))
-        rep = lambda t: t.expand(num_images, *t.shape[1:])
-        labels = None if labels is None else tuple(rep(a) for a in labels)
-        model_fn = self._cfg_model_fn(rep(last[0:1]), rep(objs), labels,
-                                      self._null_conditioning(last[1:2]), gs)
+        g = self._grounding_row(meta, pooled[2:2 + k])
         latent = (num_images, mcfg.image_size, mcfg.image_size, mcfg.in_channels)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         draw = lambda given: (torch.randn(latent, generator=gen, device=self.device)
                               if given is None else
-                              torch.as_tensor(np.array(given, np.float32), device=self.device))
+                              self._upload(np.array(given, np.float32)))
         enc_noise, q_noise = draw(encode_noise), draw(noise)
+        x_img = self._upload(np.asarray(img, np.float32))
         timings["grounding_prep"] = time.perf_counter() - t0
 
+        def program(g, ctx, uc, x_img, enc_noise, q_noise):
+            # the context repeated per image; one grounding row for all images
+            objs, labels = self._conditioning(g)
+            rep = lambda t: t.expand(x_img.shape[0], *t.shape[1:])
+            labels = None if labels is None else tuple(rep(a) for a in labels)
+            model_fn = self._cfg_model_fn(rep(ctx), rep(objs), labels,
+                                          self._null_conditioning(uc), gs)
+            z0 = vae.vae_encode(self.vae, x_img.to(self.dtype), enc_noise.to(self.dtype)).float()
+            # forward-noise to the start step's alpha (float32, as the JAX graph)
+            a0 = np.float32(sched.a_t[start])
+            x = float(np.sqrt(a0)) * z0 + float(np.sqrt(np.float32(1.0) - a0)) * q_noise
+            return self._decode(plms_steps(model_fn, sched, x, start, sched.num_steps)[0])
+
+        key = self._variant_key("img2img", "plms", sched, gs=gs, start=start)
         t_sample = time.perf_counter()
-        x_img = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(self.device)
-        z0 = vae.vae_encode(self.vae, x_img.to(self.dtype), enc_noise.to(self.dtype)).float()
-        # forward-noise to the start step's alpha (float32, as the JAX graph)
-        a0 = np.float32(sched.a_t[start])
-        x = float(np.sqrt(a0)) * z0 + float(np.sqrt(np.float32(1.0) - a0)) * q_noise
-        z = plms_steps(model_fn, sched, x, start, sched.num_steps)[0]
-        return self._finish(z, timings, t_sample)
+        out = self._run_program(key, program, g, last[0:1], last[1:2], x_img, enc_noise, q_noise)
+        return self._finish(out, timings, t_sample)

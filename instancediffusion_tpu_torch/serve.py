@@ -26,6 +26,10 @@ every rank runs `generate_batch(mesh=)` on its rows (`MeshLeader`,
     python -m instancediffusion_tpu_torch.serve --steps 20 --sampler dpm \\
         --batch_size 8 --port 8321 [--ckpt pretrained/instancediffusion_sd15.pth]
 
+`--aot_dir DIR` turns on the program cache (`aot.py`): the warm-up batch
+captures the serving program as a CUDA graph, every later batch replays
+it, and the kernel library is kept in DIR for the next start.
+
 `--ckpt` loads a reference / SD1.5 checkpoint (`from_checkpoint`); without
 it, or when the file is missing (a warning), the weights are random
 (seeded). The hash tokenizer stands in for CLIP's BPE files where they are
@@ -234,14 +238,21 @@ WARM_META = {"prompt": "warmup", "phrases": ["a thing"], "locations": [[0.2, 0.2
 
 def serve(pipe, host: str = "127.0.0.1", port: int = 8321, batch_size: int = 8,
           max_wait_ms: float = 50.0, warmup: bool = True, mesh=None,
-          **gen_kwargs) -> ThreadingHTTPServer:
+          aot_dir: str | None = None, **gen_kwargs) -> ThreadingHTTPServer:
     """Start serving `pipe` (InstanceDiffusionPipeline) on a background
     thread; port 0 takes a free one (`server.server_address[1]`). With
     `warmup`, one full batch runs before the port opens. Returns the
     running server: stop it with .shutdown(), .server_close() and
     .batcher.close(). With a `mesh` this is rank 0 of it (the other ranks
     run `follow`), and .leader.close() then ends them (.leader is None
-    without a mesh)."""
+    without a mesh).
+
+    aot_dir: opt into the program cache (`pipe.enable_aot`) before the
+    warm-up, so the warm-up batch captures the serving variant as a CUDA
+    graph and every later batch replays it; the kernel library is kept in
+    that directory for the next start."""
+    if aot_dir:
+        pipe.enable_aot(aot_dir)
     leader = None if mesh is None else MeshLeader(pipe, mesh)
     generate = pipe.generate_batch if leader is None else leader
     batcher = BatchingQueue(generate, batch_size=batch_size,
@@ -300,6 +311,9 @@ def main(argv=None):
                    help="default cuda (cuda:LOCAL_RANK with --mesh)")
     p.add_argument("--mesh", action="store_true",
                    help="shard serving batches over the ranks (torchrun or the flags below)")
+    p.add_argument("--aot_dir", type=str, default=None,
+                   help="program cache directory: the serving batch replays a CUDA graph "
+                        "and the kernel library is kept there across restarts")
     from instancediffusion_tpu_torch.launch import add_dist_args, join
 
     add_dist_args(p)
@@ -318,7 +332,7 @@ def main(argv=None):
         follow(pipe, mesh)
         return
     server = serve(pipe, host=args.host, port=args.port, batch_size=args.batch_size,
-                   max_wait_ms=args.max_wait_ms, mesh=mesh, **gen)
+                   max_wait_ms=args.max_wait_ms, mesh=mesh, aot_dir=args.aot_dir, **gen)
     try:
         while True:
             time.sleep(3600)

@@ -221,6 +221,8 @@ def test_port_import_leaves_jax_out():
         "import instancediffusion_tpu_torch.datagen.backends\n"
         "import instancediffusion_tpu_torch.datagen.label\n"
         "import instancediffusion_tpu_torch.datagen.coco_to_training_jsons\n"
+        "import instancediffusion_tpu_torch.aot\n"
+        "import instancediffusion_tpu_torch.datagen.backends_zoo\n"
         "banned = ('jax', 'instancediffusion_tpu', 'PIL', 'cv2', 'safetensors')\n"
         "mods = [m for m in sys.modules if m.split('.')[0] in banned]\n"
         "assert not mods, mods\n"

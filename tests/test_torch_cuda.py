@@ -12,6 +12,7 @@ fp32 rows (ConvNeXt in the grounding tokenizer) differs from its plain
 version only in fp32 summation order: 1e-5.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -854,11 +855,9 @@ def test_fp32_compute_routes_plain_on_card(dev):
         norms.fused_group_norm(x, gn.weight, gn.bias)
 
 
-@pytest.mark.cuda
-def test_tiny_fp32_generate_on_card(dev, monkeypatch):
-    """A tiny fp32 pipeline (compute_dtype fp32, the JAX package's exact
-    route) generates on the card: only LayerNorm's kernel launches, and the
-    images match plain_kernels() within one uint8 level."""
+def _tiny_card_pipe(dev, monkeypatch):
+    """A tiny fp32 pipeline on the card with densified gates and output
+    convs, and its two-instance meta; TF32 off."""
     from instancediffusion_tpu_torch.config import load_config
     from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
 
@@ -883,6 +882,15 @@ def test_tiny_fp32_generate_on_card(dev, monkeypatch):
             p.data.normal_(0, 0.5, generator=torch.Generator(device=dev).manual_seed(len(name)))
     meta = {"prompt": "a cat and a dog", "phrases": ["a cat", "a dog"],
             "locations": [[0.1, 0.2, 0.5, 0.9], [0.5, 0.3, 0.9, 0.9]]}
+    return pipe, meta
+
+
+@pytest.mark.cuda
+def test_tiny_fp32_generate_on_card(dev, monkeypatch):
+    """A tiny fp32 pipeline (compute_dtype fp32, the JAX package's exact
+    route) generates on the card: only LayerNorm's kernel launches, and the
+    images match plain_kernels() within one uint8 level."""
+    pipe, meta = _tiny_card_pipe(dev, monkeypatch)
     kernels.reset_launch_counts()
     imgs = pipe.generate(meta, num_images=2, steps=4, mis=0.0, seed=0)
     launched = {k for k, v in kernels.LAUNCHES.items() if v}
@@ -892,6 +900,49 @@ def test_tiny_fp32_generate_on_card(dev, monkeypatch):
     assert imgs.shape == ref.shape and imgs.dtype == ref.dtype
     assert int(imgs.max()) != int(imgs.min())
     assert abs(imgs.astype(int) - ref.astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mis", [0.0, 0.5])
+def test_tiny_capture_replays_bit_equal_on_card(dev, monkeypatch, tmp_path, mis):
+    """enable_aot on the card: the first call of a variant captures a CUDA
+    graph, later calls replay it; the images equal the eager calls bit for
+    bit on new noise, the capture counted its launches, nothing fell back."""
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
+
+    pipe, meta = _tiny_card_pipe(dev, monkeypatch)
+    eager = {s: pipe.generate(meta, num_images=2, steps=4, mis=mis, seed=s) for s in (0, 1, 2)}
+    apipe = InstanceDiffusionPipeline(pipe.cfg, pipe.unet, pipe.vae, pipe.clip, pipe.tokenizer)
+    apipe.enable_aot(str(tmp_path))
+    for s in (0, 1, 2):
+        np.testing.assert_array_equal(
+            apipe.generate(meta, num_images=2, steps=4, mis=mis, seed=s), eager[s])
+    stats = apipe._aot.stats
+    assert (stats["captures"], stats["replays"], stats["fallbacks"]) == (1, 3, 0), \
+        apipe._aot.errors
+    [manifest] = apipe._aot.variants.values()
+    assert manifest["launches"].get("fused_layer_norm", 0) > 0
+    assert manifest["capture_s"] > 0 and manifest["pool_bytes"] >= 0
+
+
+@pytest.mark.cuda
+def test_pending_handle_owns_a_pinned_copy_on_card(dev, monkeypatch, tmp_path):
+    """generate(block=False) under replay: each handle holds a pinned host
+    copy and an event, so the next replay (which rewrites the graph's
+    output buffer) leaves it alone."""
+    from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline, PendingImages
+
+    pipe, meta = _tiny_card_pipe(dev, monkeypatch)
+    want = {s: pipe.generate(meta, num_images=2, steps=4, mis=0.0, seed=s) for s in (1, 2)}
+    apipe = InstanceDiffusionPipeline(pipe.cfg, pipe.unet, pipe.vae, pipe.clip, pipe.tokenizer)
+    apipe.enable_aot(str(tmp_path))
+    apipe.generate(meta, num_images=2, steps=4, mis=0.0, seed=0)  # capture
+    h1 = apipe.generate(meta, num_images=2, steps=4, mis=0.0, seed=1, block=False)
+    h2 = apipe.generate(meta, num_images=2, steps=4, mis=0.0, seed=2, block=False)
+    assert isinstance(h1, PendingImages) and h1.host_images.is_pinned()
+    assert h1.event is not None and "fetch" not in h1.timings
+    np.testing.assert_array_equal(h2.fetch(), want[2])
+    np.testing.assert_array_equal(h1.fetch(), want[1])
 
 
 # ---------------------------------------------------------------------------
