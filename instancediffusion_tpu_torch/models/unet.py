@@ -39,6 +39,7 @@ from instancediffusion_tpu_torch.nn import core as nn
 from instancediffusion_tpu_torch.ops.attention import flash_route, multi_head_attention
 from instancediffusion_tpu_torch.parallel import tp
 from instancediffusion_tpu_torch.ops.schedules import timestep_embedding
+from instancediffusion_tpu_torch.utils.logging import span
 
 
 @dataclass(frozen=True)
@@ -138,8 +139,9 @@ def _apply_mha_fused(p: MHA, x, kv, num_heads, kv_len=None, labels=None):
     # with zeroed rows, masked by kv_len
     (q,) = proj_split(x, ((p.to_q.weight * (c ** -0.5)).to(dt),), num_heads)
     k, v = proj_split(kv, (p.to_k.weight.to(dt), p.to_v.weight.to(dt)), num_heads)
-    out = flash_attention(q, k, v, labels=labels, pre_scaled=True,
-                          kv_len=m if kv_len is None else kv_len)
+    with span("attn"):
+        out = flash_attention(q, k, v, labels=labels, pre_scaled=True,
+                              kv_len=m if kv_len is None else kv_len)
     return merge_proj(out, p.to_out.weight.to(dt), p.to_out.bias.to(dt))[:, :n]
 
 
@@ -172,8 +174,10 @@ def _apply_mha(p: MHA, x, kv, num_heads, impl, kv_len=None, mask=None, labels=No
         q = nn.linear(p.to_q, x)
     k = nn.linear(p.to_k, kv)
     v = nn.linear(p.to_v, kv)
-    out = multi_head_attention(q, k, v, num_heads, mask=mask, labels=labels, impl=impl,
-                               pre_scaled=pre_scaled, kv_len=kv_len)
+    # through the module-level name: port_bench's AttentionProbe wraps it
+    with span("attn"):
+        out = multi_head_attention(q, k, v, num_heads, mask=mask, labels=labels, impl=impl,
+                                   pre_scaled=pre_scaled, kv_len=kv_len)
     if tp.group() is None:
         return nn.linear(p.to_out, out)
     return _row_parallel(torch.nn.functional.linear(out, p.to_out.weight.to(out.dtype)),
@@ -197,11 +201,12 @@ def _apply_ff_geglu(p: FeedForward, x):
     the bias follows the all_reduce (JAX's `_apply_ff_geglu`)."""
     fn = ff_geglu if nn.kernels_enabled() else ff_geglu_plain
     dt = x.dtype
-    if tp.group() is None:
-        return fn(x, p.proj.weight.to(dt), p.proj.bias, p.out.weight.to(dt), p.out.bias)
-    y = fn(x, p.proj.weight.to(dt), p.proj.bias, p.out.weight.to(dt),
-           torch.zeros_like(p.out.bias))
-    return _row_parallel(y, p.out.bias)
+    with span("ff"):
+        if tp.group() is None:
+            return fn(x, p.proj.weight.to(dt), p.proj.bias, p.out.weight.to(dt), p.out.bias)
+        y = fn(x, p.proj.weight.to(dt), p.proj.bias, p.out.weight.to(dt),
+               torch.zeros_like(p.out.bias))
+        return _row_parallel(y, p.out.bias)
 
 
 class Fuser(torch.nn.Module):
@@ -261,7 +266,8 @@ class TransformerBlock(torch.nn.Module):
         xn = nn.layer_norm(self.norm1, x)
         x = _apply_mha(self.attn1, xn, xn, num_heads, impl) + x
         if gate_scale != 0.0:
-            x = _apply_fuser(self.fuser, x, objs, num_heads, gate_scale, impl, fuser_mask)
+            with span("fuser"):
+                x = _apply_fuser(self.fuser, x, objs, num_heads, gate_scale, impl, fuser_mask)
         x = _apply_mha(self.attn2, nn.layer_norm(self.norm2, x), context.to(x.dtype),
                        num_heads, impl) + x
         return _apply_ff_geglu(self.ff, nn.layer_norm(self.norm3, x)) + x

@@ -57,6 +57,7 @@ from instancediffusion_tpu_torch.samplers.plms import (
     plms_sample,
     plms_steps,
 )
+from instancediffusion_tpu_torch.utils.logging import span, spanned
 
 # sampler name -> (schedule maker, sampler over a whole schedule)
 _SAMPLERS = {
@@ -85,12 +86,11 @@ class PendingImages:
     def fetch(self) -> np.ndarray:
         """Wait for the copy and return the (B, H, W, 3) uint8 images."""
         if self._out is None:
-            t0 = time.perf_counter()
-            if self.event is not None:
-                self.event.synchronize()
-            self._out = self.host_images.numpy().copy()
+            with span("fetch", self.timings):
+                if self.event is not None:
+                    self.event.synchronize()
+                self._out = self.host_images.numpy().copy()
             self.host_images = None
-            self.timings["fetch"] = time.perf_counter() - t0
         return self._out
 
 
@@ -276,8 +276,9 @@ class InstanceDiffusionPipeline:
         runs once per call (the tokens are timestep-invariant)."""
         gcfg = self.cfg.model.grounding_tokenizer
         drops = unifusion.ModalityDrops.test_defaults(gcfg)
-        objs = unifusion.apply_unifusion(self.unet.position_net, gcfg, g, drops)
-        return objs, (self._instance_labels(g) if self._masking() else None)
+        with span("conditioning"):
+            objs = unifusion.apply_unifusion(self.unet.position_net, gcfg, g, drops)
+            return objs, (self._instance_labels(g) if self._masking() else None)
 
     def _null_conditioning(self, uc: torch.Tensor):
         """The CFG unconditional half, one row: the negative prompt's
@@ -306,11 +307,12 @@ class InstanceDiffusionPipeline:
             forward = functools.partial(tp.tp_forward, mesh, self._tp_local(mesh), mcfg)
 
         def model_fn(x, t, gate):
-            x2 = torch.cat([x, x]).to(dt)
-            eps2 = forward(x2, torch.cat([t, t]), ctx2, gate_scale=gate,
-                           precomputed_objs=objs2, fuser_mask=labels2)
-            e_cond, e_uncond = eps2.chunk(2)
-            return e_uncond + gs * (e_cond - e_uncond)
+            with span("unet"):
+                x2 = torch.cat([x, x]).to(dt)
+                eps2 = forward(x2, torch.cat([t, t]), ctx2, gate_scale=gate,
+                               precomputed_objs=objs2, fuser_mask=labels2)
+                e_cond, e_uncond = eps2.chunk(2)
+                return e_uncond + gs * (e_cond - e_uncond)
 
         return model_fn
 
@@ -375,18 +377,21 @@ class InstanceDiffusionPipeline:
 
     def _run_program(self, key: tuple, program, *args) -> torch.Tensor:
         """program(*args) -> uint8 images on the device, through the program
-        cache when it is on."""
-        if self._aot is None:
-            return program(*args)
-        if key not in self._programs:
-            self._programs[key] = self._aot.wrap(key, program)
-        return self._programs[key](*args)
+        cache when it is on; the host's part (the eager program, or a
+        graph's capture or replay) runs under the span "sample"."""
+        with span("sample"):
+            if self._aot is None:
+                return program(*args)
+            if key not in self._programs:
+                self._programs[key] = self._aot.wrap(key, program)
+            return self._programs[key](*args)
 
     def _decode(self, z: torch.Tensor) -> torch.Tensor:
         """VAE decode and uint8 quantisation on the device ([-1, 1] -> uint8
         with floor, the reference's numpy astype truncation)."""
-        img = vae.vae_decode(self.vae, z.to(self.dtype))
-        return torch.floor((img.float().clamp(-1.0, 1.0) * 0.5 + 0.5) * 255.0).to(torch.uint8)
+        with span("decode"):
+            img = vae.vae_decode(self.vae, z.to(self.dtype))
+            return torch.floor((img.float().clamp(-1.0, 1.0) * 0.5 + 0.5) * 255.0).to(torch.uint8)
 
     def _finish(self, img: torch.Tensor, timings: dict, t_sample: float, mesh=None,
                 n: int | None = None, block: bool = True):
@@ -412,12 +417,11 @@ class InstanceDiffusionPipeline:
         if img.is_cuda:
             torch.cuda.synchronize(img.device)
         timings["sample"] = time.perf_counter() - t_sample
-        t0 = time.perf_counter()
-        out = img.cpu().numpy()
-        timings["fetch"] = time.perf_counter() - t0
-        return out
+        with span("fetch", timings):
+            return img.cpu().numpy()
 
     @torch.inference_mode()
+    @spanned("generate")
     def generate(self, meta: dict, num_images: int | None = None,
                  steps: int | None = None, guidance_scale: float | None = None,
                  alpha: float | None = None, mis: float | None = None,
@@ -446,28 +450,26 @@ class InstanceDiffusionPipeline:
         sampler = scfg.sampler if sampler is None else sampler
         mis = _resolve_mis(sampler, mis, scfg.mis)
         timings: dict = {}
-        t0 = time.perf_counter()
-        alpha_type = meta.get("alpha_type", [alpha, 0.0, 1 - alpha])
-        sched = self._make_schedule(sampler, steps, alpha_type)
-        k = len(meta["phrases"])
-        mis_step = int(steps * mis) if (mis > 0 and k > 0) else 0
-        num_traj = 1 + k if mis_step > 0 else 1
+        with span("text_encode", timings):
+            alpha_type = meta.get("alpha_type", [alpha, 0.0, 1 - alpha])
+            sched = self._make_schedule(sampler, steps, alpha_type)
+            k = len(meta["phrases"])
+            mis_step = int(steps * mis) if (mis > 0 and k > 0) else 0
+            num_traj = 1 + k if mis_step > 0 else 1
 
-        # one batched text encode: prompt, negative prompt, phrases
-        last, pooled_all = self._encode([meta["prompt"], neg] + list(meta["phrases"]))
-        context, uc = last[0:1], last[1:2]
-        pooled = pooled_all[2:2 + k]
-        timings["text_encode"] = time.perf_counter() - t0
+            # one batched text encode: prompt, negative prompt, phrases
+            last, pooled_all = self._encode([meta["prompt"], neg] + list(meta["phrases"]))
+            context, uc = last[0:1], last[1:2]
+            pooled = pooled_all[2:2 + k]
 
         # grounding rows: row 0 holds every instance; under MIS row j+1 is
         # instance j alone, in slot 0, with its phrase as the prompt
-        t0 = time.perf_counter()
-        g_rows = [self._grounding_row(meta, pooled)]
-        g_rows += [self._grounding_row(prepare_instance_meta(meta, i), pooled[i:i + 1])
-                   for i in range(num_traj - 1)]
-        ctx_rows = torch.cat([context, last[2:2 + num_traj - 1]])
-        x_init = self._latents(initial_latents, num_images, seed)
-        timings["grounding_prep"] = time.perf_counter() - t0
+        with span("grounding_prep", timings):
+            g_rows = [self._grounding_row(meta, pooled)]
+            g_rows += [self._grounding_row(prepare_instance_meta(meta, i), pooled[i:i + 1])
+                       for i in range(num_traj - 1)]
+            ctx_rows = torch.cat([context, last[2:2 + num_traj - 1]])
+            x_init = self._latents(initial_latents, num_images, seed)
 
         def program(g, ctx_rows, uc, x_init):
             # on the distinct rows only; every image of a row shares them
@@ -497,6 +499,7 @@ class InstanceDiffusionPipeline:
         return self._finish(img, timings, t_sample, block=block)
 
     @torch.inference_mode()
+    @spanned("generate")
     def generate_batch(self, metas: list[dict], steps: int | None = None,
                        guidance_scale: float | None = None, alpha: float | None = None,
                        seeds: list[int] | None = None, negative_prompt: str | None = None,
@@ -550,53 +553,51 @@ class InstanceDiffusionPipeline:
             x0 = np.asarray(initial_latents)
             initial_latents = np.concatenate([x0] + [x0[-1:]] * (b - n_meta))
         timings: dict = {}
-        t0 = time.perf_counter()
-        sched = self._make_schedule(sampler, steps, [alpha, 0.0, 1.0 - alpha])
+        with span("text_encode", timings):
+            sched = self._make_schedule(sampler, steps, [alpha, 0.0, 1.0 - alpha])
 
-        # one batched text encode: every prompt, the negative prompt, every
-        # phrase (a MIS instance prompt is its phrase: its row is reused)
-        texts = [m["prompt"] for m in metas] + [neg]
-        phrase_off = []
-        for m in metas:
-            phrase_off.append(len(texts))
-            texts += list(m["phrases"])
-        last, pooled = self._encode(texts)
-        timings["text_encode"] = time.perf_counter() - t0
+            # one batched text encode: every prompt, the negative prompt, every
+            # phrase (a MIS instance prompt is its phrase: its row is reused)
+            texts = [m["prompt"] for m in metas] + [neg]
+            phrase_off = []
+            for m in metas:
+                phrase_off.append(len(texts))
+                texts += list(m["phrases"])
+            last, pooled = self._encode(texts)
 
-        t0 = time.perf_counter()
-        grounding = stack_groundings([
-            self._grounding_row(m, pooled[off:off + k])
-            for m, off, k in zip(metas, phrase_off, counts)])
-        # this rank's rows of the batch (all of them without a mesh)
-        rows = mesh_mod.row_slice(mesh, b)
-        x_init = self._latents(initial_latents, b, seeds)[rows]
-        mis_args = ()
-        if num_traj > 1 and mis_step > 0:
-            # trajectory-major stacks: rows [j*b, (j+1)*b) hold trajectory j
-            # (trajectory 0 = the per-meta conditioning); trajectory j+1 of
-            # image i is its instance j alone, or padding
-            null_row = unifusion.null_grounding(1, mcfg.max_objs, mcfg.grounding_tokenizer,
-                                                device=self.device)
-            g_rows, ctx_idx = [], list(range(b))
-            for j in range(num_traj - 1):
-                for i, m in enumerate(metas):
-                    if j < counts[i]:
-                        g_rows.append(self._grounding_row(
-                            prepare_instance_meta(m, j),
-                            pooled[phrase_off[i] + j:phrase_off[i] + j + 1]))
-                        ctx_idx.append(phrase_off[i] + j)
-                    else:
-                        g_rows.append(null_row)
-                        ctx_idx.append(b)  # the negative prompt's row
-            w = np.ones((num_traj, b), np.float32)
-            for i, k in enumerate(counts):
-                w[1 + k:, i] = 0.0
-            if mesh is not None:  # this rank's rows of every trajectory
-                w = w[:, rows]
-            mis_args = (stack_groundings(g_rows),
-                        last[self._upload(np.asarray(ctx_idx, np.int64))],
-                        self._upload(w))
-        timings["grounding_prep"] = time.perf_counter() - t0
+        with span("grounding_prep", timings):
+            grounding = stack_groundings([
+                self._grounding_row(m, pooled[off:off + k])
+                for m, off, k in zip(metas, phrase_off, counts)])
+            # this rank's rows of the batch (all of them without a mesh)
+            rows = mesh_mod.row_slice(mesh, b)
+            x_init = self._latents(initial_latents, b, seeds)[rows]
+            mis_args = ()
+            if num_traj > 1 and mis_step > 0:
+                # trajectory-major stacks: rows [j*b, (j+1)*b) hold trajectory j
+                # (trajectory 0 = the per-meta conditioning); trajectory j+1 of
+                # image i is its instance j alone, or padding
+                null_row = unifusion.null_grounding(1, mcfg.max_objs, mcfg.grounding_tokenizer,
+                                                    device=self.device)
+                g_rows, ctx_idx = [], list(range(b))
+                for j in range(num_traj - 1):
+                    for i, m in enumerate(metas):
+                        if j < counts[i]:
+                            g_rows.append(self._grounding_row(
+                                prepare_instance_meta(m, j),
+                                pooled[phrase_off[i] + j:phrase_off[i] + j + 1]))
+                            ctx_idx.append(phrase_off[i] + j)
+                        else:
+                            g_rows.append(null_row)
+                            ctx_idx.append(b)  # the negative prompt's row
+                w = np.ones((num_traj, b), np.float32)
+                for i, k in enumerate(counts):
+                    w[1 + k:, i] = 0.0
+                if mesh is not None:  # this rank's rows of every trajectory
+                    w = w[:, rows]
+                mis_args = (stack_groundings(g_rows),
+                            last[self._upload(np.asarray(ctx_idx, np.int64))],
+                            self._upload(w))
 
         def program(grounding, ctx, uc, x_init, *mis_args):
             objs, labels = self._conditioning(grounding)
@@ -630,6 +631,7 @@ class InstanceDiffusionPipeline:
         return self._finish(img, timings, t_sample, mesh, n_meta)
 
     @torch.inference_mode()
+    @spanned("generate")
     def img2img(self, image: np.ndarray, meta: dict, strength: float = 0.5,
                 num_images: int | None = None, steps: int | None = None,
                 guidance_scale: float | None = None, alpha: float | None = None,
@@ -677,20 +679,18 @@ class InstanceDiffusionPipeline:
             raise ValueError(f"got {img.shape[0]} images for num_images={num_images}")
 
         timings: dict = {}
-        t0 = time.perf_counter()
-        k = len(meta["phrases"])
-        last, pooled = self._encode([meta["prompt"], neg] + list(meta["phrases"]))
-        timings["text_encode"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        g = self._grounding_row(meta, pooled[2:2 + k])
-        latent = (num_images, mcfg.image_size, mcfg.image_size, mcfg.in_channels)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        draw = lambda given: (torch.randn(latent, generator=gen, device=self.device)
-                              if given is None else
-                              self._upload(np.array(given, np.float32)))
-        enc_noise, q_noise = draw(encode_noise), draw(noise)
-        x_img = self._upload(np.asarray(img, np.float32))
-        timings["grounding_prep"] = time.perf_counter() - t0
+        with span("text_encode", timings):
+            k = len(meta["phrases"])
+            last, pooled = self._encode([meta["prompt"], neg] + list(meta["phrases"]))
+        with span("grounding_prep", timings):
+            g = self._grounding_row(meta, pooled[2:2 + k])
+            latent = (num_images, mcfg.image_size, mcfg.image_size, mcfg.in_channels)
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            draw = lambda given: (torch.randn(latent, generator=gen, device=self.device)
+                                  if given is None else
+                                  self._upload(np.array(given, np.float32)))
+            enc_noise, q_noise = draw(encode_noise), draw(noise)
+            x_img = self._upload(np.asarray(img, np.float32))
 
         def program(g, ctx, uc, x_img, enc_noise, q_noise):
             # the context repeated per image; one grounding row for all images

@@ -35,6 +35,7 @@ from instancediffusion_tpu_torch.ops.schedules import make_diffusion_schedule
 from instancediffusion_tpu_torch.samplers.ddim import (
     DDIMSchedule, ddim_sample, make_ddim_schedule,
 )
+from instancediffusion_tpu_torch.utils.logging import span, spanned
 
 REFINER_VAE = VAEConfig(scale_factor=0.13025)  # SDXL's VAE: the SD architecture
 
@@ -108,6 +109,7 @@ class SDXLRefinerPipeline:
         return out["penultimate_hidden_state"], out["projected_pooled"]
 
     @torch.inference_mode()
+    @spanned("generate")
     def refine(self, images: np.ndarray, prompt: str, negative_prompt: str = "",
                strength: float = 0.35, steps: int = 20, guidance_scale: float = 5.0,
                aesthetic_score: float = 6.0, negative_aesthetic_score: float = 2.5,
@@ -121,17 +123,18 @@ class SDXLRefinerPipeline:
         keep = max(1, min(int(steps * strength), steps))
         sched = _slice_schedule(make_ddim_schedule(self.diffusion, steps), keep)
         timings: dict = {}
-        t0 = time.perf_counter()
-        # one encode of [prompt, negative]; every image takes the same rows
-        ctx, pooled = self._encode([prompt, negative_prompt])
-        rep = lambda t: t.expand(b, *t.shape[1:])
-        ctx2 = torch.cat([rep(ctx[1:2]), rep(ctx[0:1])]).to(self.dtype)
-        y = torch.cat([
-            refiner_adm_vector(rep(pooled[1:2]), (h, w), (0, 0), negative_aesthetic_score),
-            refiner_adm_vector(rep(pooled[0:1]), (h, w), (0, 0), aesthetic_score),
-        ]).to(self.dtype)
-        timings["text_encode"] = time.perf_counter() - t0
+        with span("text_encode", timings):
+            # one encode of [prompt, negative]; every image takes the same rows
+            ctx, pooled = self._encode([prompt, negative_prompt])
+            rep = lambda t: t.expand(b, *t.shape[1:])
+            ctx2 = torch.cat([rep(ctx[1:2]), rep(ctx[0:1])]).to(self.dtype)
+            y = torch.cat([
+                refiner_adm_vector(rep(pooled[1:2]), (h, w), (0, 0), negative_aesthetic_score),
+                refiner_adm_vector(rep(pooled[0:1]), (h, w), (0, 0), aesthetic_score),
+            ]).to(self.dtype)
 
+        # "sample": the seconds from here to the images on the host (the
+        # noise draw, the upload, the program and its copy back)
         t0 = time.perf_counter()
         latent = (b, h // 8, w // 8, 4)
         if noise is None:
@@ -140,20 +143,25 @@ class SDXLRefinerPipeline:
         else:
             noise_t = torch.as_tensor(np.array(noise, np.float32), device=self.device)
         x_img = torch.from_numpy(np.asarray(images, np.float32) * 2.0 - 1.0).to(self.device)
-        z = vae.vae_encode_mode(self.vae, x_img.to(self.dtype)).float()
-        a0 = np.float32(sched.a_t[0])
-        x = float(np.sqrt(a0)) * z + float(np.sqrt(np.float32(1.0) - a0)) * noise_t
         gs = float(guidance_scale)
 
         def model_fn(xt, t, gate):
-            x2 = torch.cat([xt, xt]).to(self.dtype)
-            eps = apply_refiner_unet(self.unet, x2, torch.cat([t, t]), ctx2, y)
-            e_u, e_c = eps[:b], eps[b:]
-            return e_u + gs * (e_c - e_u)
+            with span("unet"):
+                x2 = torch.cat([xt, xt]).to(self.dtype)
+                eps = apply_refiner_unet(self.unet, x2, torch.cat([t, t]), ctx2, y)
+                e_u, e_c = eps[:b], eps[b:]
+                return e_u + gs * (e_c - e_u)
 
-        x0 = ddim_sample(model_fn, sched, x)
-        img = vae.vae_decode(self.vae, x0.to(self.dtype))
-        out = (img.float() * 0.5 + 0.5).clamp(0.0, 1.0).cpu().numpy()
+        with span("sample"):
+            z = vae.vae_encode_mode(self.vae, x_img.to(self.dtype)).float()
+            a0 = np.float32(sched.a_t[0])
+            x = float(np.sqrt(a0)) * z + float(np.sqrt(np.float32(1.0) - a0)) * noise_t
+            x0 = ddim_sample(model_fn, sched, x)
+            with span("decode"):
+                img = vae.vae_decode(self.vae, x0.to(self.dtype))
+                img = (img.float() * 0.5 + 0.5).clamp(0.0, 1.0)
+        with span("fetch"):
+            out = img.cpu().numpy()
         timings["sample"] = time.perf_counter() - t0
         self.last_timings = timings
         return out

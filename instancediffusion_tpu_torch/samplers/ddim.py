@@ -28,6 +28,7 @@ from instancediffusion_tpu_torch.ops.schedules import (
     make_ddim_timesteps,
 )
 from instancediffusion_tpu_torch.samplers.plms import ModelFn
+from instancediffusion_tpu_torch.utils.logging import span
 
 
 @dataclass(frozen=True)
@@ -85,19 +86,20 @@ def ddim_sample(model_fn: ModelFn, sched: DDIMSchedule, x_init: torch.Tensor,
     if noise is not None and len(noise) != sched.num_steps:
         raise ValueError(f"noise has {len(noise)} steps, the schedule {sched.num_steps}")
     for i in range(sched.num_steps):
-        a_t, a_prev = float(sched.a_t[i]), float(sched.a_prev[i])
-        sigma = float(sched.sigmas[i])
-        t = torch.full((b,), int(sched.ts[i]), dtype=torch.long, device=x.device)
-        e_t = model_fn(x, t, float(sched.gates[i])).float()
-        pred_x0 = (x - float(sched.sqrt_one_minus_a_t[i]) * e_t) / _sqrt32(a_t)
-        dir_xt = _sqrt32(np.float32(1.0) - np.float32(a_prev) - np.float32(sigma) ** 2) * e_t
-        x = _sqrt32(a_prev) * pred_x0 + dir_xt
-        if sigma > 0.0:
-            if noise is not None:
-                z = noise[i].to(x.device, torch.float32)
-            else:
-                if generator is None:
-                    generator = torch.Generator(device=x.device).manual_seed(0)
-                z = torch.randn(x.shape, generator=generator, device=x.device)
-            x = x + sigma * z
+        with span("step"):
+            a_t, a_prev = float(sched.a_t[i]), float(sched.a_prev[i])
+            sigma = float(sched.sigmas[i])
+            t = torch.full((b,), int(sched.ts[i]), dtype=torch.long, device=x.device)
+            e_t = model_fn(x, t, float(sched.gates[i])).float()
+            pred_x0 = (x - float(sched.sqrt_one_minus_a_t[i]) * e_t) / _sqrt32(a_t)
+            dir_xt = _sqrt32(np.float32(1.0) - np.float32(a_prev) - np.float32(sigma) ** 2) * e_t
+            x = _sqrt32(a_prev) * pred_x0 + dir_xt
+            if sigma > 0.0:
+                if noise is not None:
+                    z = noise[i].to(x.device, torch.float32)
+                else:
+                    if generator is None:
+                        generator = torch.Generator(device=x.device).manual_seed(0)
+                    z = torch.randn(x.shape, generator=generator, device=x.device)
+                x = x + sigma * z
     return x

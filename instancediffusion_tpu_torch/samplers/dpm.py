@@ -33,6 +33,7 @@ from instancediffusion_tpu_torch.ops.schedules import (
     make_ddim_timesteps,
 )
 from instancediffusion_tpu_torch.samplers.plms import ModelFn
+from instancediffusion_tpu_torch.utils.logging import span
 
 
 @dataclass(frozen=True)
@@ -105,15 +106,18 @@ def dpm_sample(model_fn: ModelFn, sched: DPMSchedule, x_init: torch.Tensor,
         return float(sched.sig_ratio[i]) * x + float(sched.amul[i]) * d
 
     # step 0 peeled: no history, first order
-    x0_prev = x0_pred(x, 0)
-    x = update(x, 0, x0_prev, None)
+    with span("step"):
+        x0_prev = x0_pred(x, 0)
+        x = update(x, 0, x0_prev, None)
     last = s - 1 if (lower_order_final and s > 1) else None
     stop = s if last is None else last
     for i in range(1, stop):
-        x0 = x0_pred(x, i)
-        x = update(x, i, x0, x0_prev)
+        with span("step"):
+            x0 = x0_pred(x, i)
+            x = update(x, i, x0, x0_prev)
         x0_prev = x0
     if last is not None:
         # first-order final step: the largest log-SNR jump lands here
-        x = update(x, last, x0_pred(x, last), None)
+        with span("step"):
+            x = update(x, last, x0_pred(x, last), None)
     return x

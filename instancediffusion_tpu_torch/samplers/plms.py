@@ -25,6 +25,7 @@ from instancediffusion_tpu_torch.ops.schedules import (
     make_ddim_sampling_parameters,
     make_ddim_timesteps,
 )
+from instancediffusion_tpu_torch.utils.logging import span
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]
 # model_fn(x (B,H,W,C), t (B,) int, gate float) -> eps (B,H,W,C)
@@ -101,21 +102,22 @@ def plms_steps(model_fn: ModelFn, sched: PLMSSchedule, x: torch.Tensor, start: i
         raise ValueError("plms_steps: assume_history without an eps history")
     b = x.shape[0]
     for i in range(start, stop):
-        gate = float(sched.gates[i])
-        a_t, a_prev = float(sched.a_t[i]), float(sched.a_prev[i])
-        sqrt_1m = float(sched.sqrt_one_minus_a_t[i])
-        t = torch.full((b,), int(sched.ts[i]), dtype=torch.long, device=x.device)
-        e_t = model_fn(x, t, gate).float()
-        if not hist:
-            # pseudo improved Euler: a second model call at (x_prev, t_next)
-            t_next = torch.full((b,), int(sched.ts_next[i]), dtype=torch.long,
-                                device=x.device)
-            x1 = _x_prev(x, e_t, a_t, a_prev, sqrt_1m)
-            e_prime = (e_t + model_fn(x1, t_next, gate).float()) / 2
-        else:
-            e_prime = _e_t_prime(e_t, hist)
-        x = _x_prev(x, e_prime, a_t, a_prev, sqrt_1m)
-        hist = (hist + [e_t])[-3:]
+        with span("step"):
+            gate = float(sched.gates[i])
+            a_t, a_prev = float(sched.a_t[i]), float(sched.a_prev[i])
+            sqrt_1m = float(sched.sqrt_one_minus_a_t[i])
+            t = torch.full((b,), int(sched.ts[i]), dtype=torch.long, device=x.device)
+            e_t = model_fn(x, t, gate).float()
+            if not hist:
+                # pseudo improved Euler: a second model call at (x_prev, t_next)
+                t_next = torch.full((b,), int(sched.ts_next[i]), dtype=torch.long,
+                                    device=x.device)
+                x1 = _x_prev(x, e_t, a_t, a_prev, sqrt_1m)
+                e_prime = (e_t + model_fn(x1, t_next, gate).float()) / 2
+            else:
+                e_prime = _e_t_prime(e_t, hist)
+            x = _x_prev(x, e_prime, a_t, a_prev, sqrt_1m)
+            hist = (hist + [e_t])[-3:]
     return x, hist
 
 

@@ -9,7 +9,9 @@ future. A fixed batch keeps every call at the one shape the warm-up ran.
 Each request's `seed` (default 0) fixes its image.
 
 Endpoints (stdlib http.server):
-  GET  /healthz    -> {"ok": true, "device": ..., "requests": N, ...}
+  GET  /healthz    -> {"ok": true, "device": ..., "requests": N, "batches": N,
+                   "batch_size": N, "batch_s": {"p50", "p90"},
+                   "queue_wait_s": {"p50", "p90"}} (None before a batch)
   POST /generate   body: a demo meta as JSON (prompt, phrases, locations[,
                    points, scribbles, polygons, segs], optional seed)
                    -> image/png (?format=json: base64 PNG and latency)
@@ -60,7 +62,9 @@ class BatchingQueue:
     submit() returns a Future resolving to one (H, W, 3) uint8 array. The
     worker drains up to `batch_size` requests, waiting at most
     `max_wait_ms` after the first arrival before running a short (padded)
-    batch. `batch_seconds` holds the host seconds of the latest batches."""
+    batch. `batch_seconds` holds the host seconds of the latest batches,
+    `queue_wait_seconds` those of the latest requests from `submit` to the
+    start of their batch."""
 
     def __init__(self, generate_batch, batch_size: int = 8, max_wait_ms: float = 50.0,
                  **gen_kwargs):
@@ -73,12 +77,13 @@ class BatchingQueue:
         self.batches = 0
         self.requests = 0
         self.batch_seconds: collections.deque = collections.deque(maxlen=256)
+        self.queue_wait_seconds: collections.deque = collections.deque(maxlen=256)
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
     def submit(self, meta: dict, seed: int = 0) -> Future:
         fut: Future = Future()
-        self._q.put((meta, int(seed), fut))
+        self._q.put((meta, int(seed), fut, time.perf_counter()))
         return fut
 
     def close(self, timeout: float = 5.0):
@@ -113,22 +118,36 @@ class BatchingQueue:
             if not items:
                 continue
             n = len(items)
-            metas = [m for m, _, _ in items]
-            seeds = [s for _, s, _ in items]
+            metas = [m for m, _, _, _ in items]
+            seeds = [s for _, s, _, _ in items]
             metas += [metas[-1]] * (self.batch_size - n)
             seeds += [seeds[-1]] * (self.batch_size - n)
-            t0 = time.perf_counter()
+            start = time.perf_counter()
+            self.queue_wait_seconds.extend(start - t for _, _, _, t in items)
             try:
                 imgs = self._generate_batch(metas, seeds=seeds, **self.gen_kwargs)[:n]
-                self.batch_seconds.append(time.perf_counter() - t0)
+                self.batch_seconds.append(time.perf_counter() - start)
                 self.batches += 1
                 self.requests += n
-                for (_, _, fut), img in zip(items, imgs):
+                for (_, _, fut, _), img in zip(items, imgs):
                     fut.set_result(np.asarray(img))
             except Exception as e:  # resolve every future, never wedge
-                for _, _, fut in items:
+                for _, _, fut, _ in items:
                     if not fut.done():
                         fut.set_exception(e)
+
+    def health(self) -> dict:
+        """What /healthz reports of the queue: requests and batches served,
+        and the median and p90 of the latest batches' seconds and of the
+        latest requests' queue wait (None before the first batch)."""
+        out = {"requests": self.requests, "batches": self.batches,
+               "batch_size": self.batch_size}
+        for name, seconds in (("batch_s", self.batch_seconds),
+                              ("queue_wait_s", self.queue_wait_seconds)):
+            v = list(seconds)
+            out[name] = (dict(zip(("p50", "p90"), map(float, np.percentile(v, [50, 90]))))
+                         if v else None)
+        return out
 
 
 def make_handler(batcher: BatchingQueue, device_desc: str):
@@ -148,9 +167,7 @@ def make_handler(batcher: BatchingQueue, device_desc: str):
 
         def do_GET(self):
             if self.path.startswith("/healthz"):
-                self._json(200, {"ok": True, "device": device_desc,
-                                 "requests": batcher.requests, "batches": batcher.batches,
-                                 "batch_size": batcher.batch_size})
+                self._json(200, {"ok": True, "device": device_desc, **batcher.health()})
             else:
                 self._json(404, {"error": "unknown path"})
 

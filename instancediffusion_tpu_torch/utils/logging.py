@@ -1,16 +1,75 @@
 """Metrics, progress and observability (counterpart of
-`instancediffusion_tpu/utils/logging.py`, copied; the profiler capture is
-torch.profiler's).
+`instancediffusion_tpu/utils/logging.py`, copied; its trace capture is
+replaced by `span`).
 
 Replaces the reference's meters + TensorBoard + wandb stack
 (utils/misc.py:36-245, trainer.py:109-123, main_submitit.py:112-119):
 console meters with ETA, an always-on scalars.jsonl, optional TensorBoard
-scalars, optional wandb mirror, plus a torch.profiler trace capture."""
+scalars, optional wandb mirror, plus the program's spans (`span`): ranges
+named `idt.<name>` on a torch.profiler session's timeline, beside the CUDA
+runtime calls and the device's kernels."""
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import time
 from collections import deque
+
+import torch
+
+SPAN_PREFIX = "idt."
+
+# a span outside a recording profiler session: one shared no-op context
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, timings: dict | None = None):
+    """`with span(name):` marks a phase of the program. Only while a
+    torch.profiler session records this thread does it open
+    `record_function("idt." + name)`; otherwise it returns a shared no-op
+    context (a check of the profiler's thread-local state, under 1 us on a
+    host core). With `timings`, it also stores the host seconds of the
+    block under `name` by `time.perf_counter()`. It never
+    synchronises the device or reads a tensor."""
+    if timings is not None:
+        return _TimedSpan(name, timings)
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+class _TimedSpan:
+    """`span` with timings: the host seconds of the block land in
+    timings[name], also when it raises."""
+
+    def __init__(self, name: str, timings: dict):
+        self.name, self.timings = name, timings
+        self._range = None
+
+    def __enter__(self):
+        if torch._C._autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(SPAN_PREFIX + self.name)
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.timings[self.name] = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
 
 
 class AverageMeter:
@@ -113,31 +172,3 @@ class MetricLogger:
     def _hms(sec: float) -> str:
         sec = int(sec)
         return f"{sec // 3600}:{(sec % 3600) // 60:02d}:{sec % 60:02d}"
-
-
-class ProfilerTrace:
-    """torch.profiler capture of the host and, where there is one, the card:
-    `with ProfilerTrace('/tmp/trace'): step()` writes a Chrome trace
-    (trace.json, for Perfetto or chrome://tracing) into the directory."""
-
-    def __init__(self, log_dir: str):
-        self.log_dir = log_dir
-        self.prof = None
-
-    def __enter__(self):
-        import torch
-
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        self.prof = torch.profiler.profile(activities=acts)
-        self.prof.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        import os
-
-        self.prof.__exit__(*exc)
-        os.makedirs(self.log_dir, exist_ok=True)
-        self.prof.export_chrome_trace(os.path.join(self.log_dir, "trace.json"))
-        return False

@@ -87,6 +87,30 @@ def test_concurrent_submissions_share_one_batch():
     assert bq.batches == 1, fake.calls
 
 
+def test_queue_wait_and_health():
+    """Each request's wait from submit to the start of its batch: with a
+    batch taking 0.3 s and room for 2, the second batch's requests wait
+    about one batch time; /healthz's median and p90 of waits and batches."""
+    fake = FakeBackend(delay_s=0.3)
+    bq = serve.BatchingQueue(fake, batch_size=2, max_wait_ms=20.0)
+    assert bq.health()["queue_wait_s"] is None and bq.health()["batch_s"] is None
+    futs = [bq.submit({"prompt": str(i)}, seed=i) for i in range(4)]
+    for f in futs:
+        f.result(timeout=10)
+    bq.close()
+    assert len(fake.calls) == 2
+    first, second = list(bq.queue_wait_seconds)[:2], list(bq.queue_wait_seconds)[2:]
+    assert max(first) < 0.15
+    assert all(0.3 <= w < 0.3 + 0.15 + 0.5 for w in second), second
+    assert all(0.3 <= s < 0.3 + 0.5 for s in bq.batch_seconds)
+    health = bq.health()
+    assert health["requests"] == 4 and health["batches"] == 2 and health["batch_size"] == 2
+    waits = sorted(bq.queue_wait_seconds)
+    assert health["queue_wait_s"]["p50"] == pytest.approx((waits[1] + waits[2]) / 2)
+    assert waits[2] <= health["queue_wait_s"]["p90"] <= waits[3]
+    assert health["batch_s"]["p50"] == pytest.approx(np.mean(bq.batch_seconds))
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """8-bit RGB PNG with filter 0 rows (what png_bytes writes) -> array;
     checks each chunk's CRC."""
@@ -165,6 +189,7 @@ def test_http_end_to_end(tiny_pipe_port):
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
             health = json.loads(r.read())
         assert health["ok"] and health["device"] == "cpu" and health["requests"] >= 2
+        assert health["batch_s"]["p90"] > 0 and health["queue_wait_s"]["p50"] >= 0
         with _post(port, dict(meta, seed=7)) as r:
             assert r.headers["Content-Type"] == "image/png"
             img = decode_png(r.read())
