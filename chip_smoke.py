@@ -5,7 +5,9 @@
 Phases, in order (each prints its lines; any failure exits non-zero):
   device     require CUDA; print the card's name and power limit (nvidia-smi)
   build      build the hand-written kernels from csrc/ with nvcc
-  kernels    each kernel against its plain PyTorch version at the paths'
+  kernels    the labeled kernel's tile plans and label words, built on the
+             card, equal to the plain plans (B=16 META, the B=80 MIS mix);
+             each kernel against its plain PyTorch version at the paths'
              per-sample shapes (batch 2), in bf16 (LayerNorm also on the fp32
              ConvNeXt rows; attention also with instance labels from META's
              boxes, one sample masked and one open): max abs / relative error
@@ -23,7 +25,11 @@ Phases, in order (each prints its lines; any failure exits non-zero):
              and K2, K3, K4, K5 at the SDXL refiner's B=16 shapes (12 heads
              of 64, GroupNorm up to 3072 channels, C=768 feed-forward); and
              K1, K2, K5 at a tensor-parallel rank's B=16 shapes (4 of the 8
-             heads; FF inner 640 at C=320 and 1280 at C=640, zero down bias)
+             heads; FF inner 640 at C=320 and 1280 at C=640, zero down bias);
+             the labeled kernel also at the B=80 masked MIS call (40 open
+             rows, 8 with META's four boxes, 32 with one each) beside its
+             kept-pair exp2 bound, each labeled case with the share of key
+             tiles its tile plans listed (label_tile_share)
   grounding  UniFusion in fp32 (ConvNeXt's LayerNorms through the kernel) on
              the slice's layout with random phrase embeddings and instance
              masks, seg tokens kept, kernels vs plain_kernels()
@@ -38,7 +44,8 @@ Phases, in order (each prints its lines; any failure exits non-zero):
              and META's instance masks: generate (8 images, 50 steps,
              mis=0.36: Multi-Instance Sampler over 5 trajectories, fuser
              masked by instance labels), warm-up then timed requests, with
-             the same checks
+             the same checks and the share of key tiles the labeled
+             kernel's plans listed
   fused      the B=16 gate-1 UNet forward (the CFG batch of 8 images) with
              the ds1 attentions on the FUSED_PROJ route (proj_split, flash
              attention, merge_proj) against the unfused route, both on the
@@ -180,6 +187,7 @@ import time
 
 STEPS = 50
 N_IMAGES = 8
+MIS_B = 2 * N_IMAGES * 5  # CFG x 8 images x (the global + 4 instance trajectories)
 
 META = {
     "prompt": "a cat and a dog and a robin sitting on a wooden bench in a park",
@@ -346,7 +354,7 @@ FF_ROUTE = "ff_geglu_unfused"
 FF_PER_REQUEST = {"fused_ff_geglu": 38 * 20 + 13 * 10, FF_ROUTE: 38 * 12 + 13 * 6}
 FF_PER_BATCH = {"fused_ff_geglu": 15 * 20 + 5 * 10, FF_ROUTE: 15 * 12 + 5 * 6}
 FF_PER_STEP = {"fused_ff_geglu": 2 * 20, FF_ROUTE: 2 * 12}
-MIS_PATH = PLAIN_PATH + ("flash_attention_labeled",)
+MIS_PATH = PLAIN_PATH + ("flash_attention_labeled", "flash_tile_plan")
 TRAIN_PATH = tuple(TRAIN_LAUNCHES) + ("fused_group_norm", "fused_layer_norm", "fused_ff_geglu")
 MASKED_TRAIN_PATH = tuple(MASKED_LAUNCHES)
 # the serving path: generate_batch with DPM-Solver++ at 20 steps, batch 8
@@ -460,6 +468,24 @@ def meta_labels(torch, dev, size: int, n_objs: int = 30, seg_tokens: int = 64):
     return instance_labels(rasterize_boxes(boxes, size), n_objs, seg_tokens)
 
 
+def mis_mix_labels(torch, dev, four=META["locations"], size: int = 64, n_objs: int = 30,
+                   seg_tokens: int = 64):
+    """(bits, open) int32 (MIS_B, size**2 + 4*n_objs + seg_tokens) fuser
+    labels of the masked MIS call at 8 images: 8 rows with the four boxes
+    `four` (xyxy in [0, 1]; META's by default) on the global trajectories,
+    32 with one of them each (the instances' own), 40 open (the CFG null
+    half)."""
+    from instancediffusion_tpu_torch.kernels.flash_attention import instance_labels
+    from instancediffusion_tpu_torch.ops.instance_mask import rasterize_boxes
+
+    four = torch.tensor(four, device=dev)
+    boxes = torch.zeros(MIS_B, n_objs, 4, device=dev)
+    boxes[:N_IMAGES, :len(four)] = four
+    for i in range(N_IMAGES * len(four)):
+        boxes[N_IMAGES + i, 0] = four[i % len(four)]
+    return instance_labels(rasterize_boxes(boxes, size), n_objs, seg_tokens)
+
+
 def meta_segs(size: int = 512):
     """One filled ellipse inside each of META's boxes, (size, size) float32
     instance masks (rows y, columns x)."""
@@ -484,13 +510,15 @@ def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16) -> tuple[float,
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _attn_work(kind, b, h, n, m, c, mask=None):
+def _attn_work(kind, b, h, n, m, c, mask=None, kept=None):
     """(FLOPs, bytes, exp2 count) of one attention kernel call. kind: "fwd"
     (q k^T and p v), "fwd_lse" (also writes lse), "dq" (s, dp, dq) or "dkv"
     (s, dp, dv, dk); each computes one exp2 per kept score. Labeled calls
-    count the kept (q, key) pairs only; bf16 operands, fp32 lse and delta,
-    int32 labels."""
+    count the kept (q, key) pairs only (`mask`'s, or `kept` of a mask too
+    large to build); bf16 operands, fp32 lse and delta, int32 labels."""
     pairs = b * n * m if mask is None else int(mask.sum().item())
+    if kept is not None:
+        pairs, mask = kept, True
     n_mm = {"fwd": 2, "fwd_lse": 2, "dq": 3, "dkv": 4}[kind]
     rows = {"fwd": 2 * n + 2 * m, "fwd_lse": 2 * n + 2 * m, "dq": 3 * n + 2 * m,
             "dkv": 2 * n + 4 * m}[kind]  # q/out/dO/dq rows, k/v/dk/dv rows
@@ -722,6 +750,23 @@ def _main_cases(torch, dev, randn, case):
         lambda: sdpa_fp32(qh, kh, vh, mask=mask), BF16_REL_TOL,
         _attn_work("fwd", b, 8, 4096, 4280, 40, mask),
         lambda: sdpa(qh, kh, vh, attn_mask=mask)))
+    # the B=80 masked MIS call: 40 open rows, 8 with META's four boxes, 32
+    # with one of them each (the kept-pair reference runs in slices of 8 rows)
+    bits, open_ = mis_mix_labels(torch, dev)
+    mix = (bits, open_)
+    qm, km, vm = (heads(randn(MIS_B, s, 320), 40) for s in (4096, 4280, 4280))
+
+    def plain_mix():
+        return torch.cat([sdpa_fp32(qm[r:r + 8], km[r:r + 8], vm[r:r + 8],
+                                    mask=labels_to_dense(bits[r:r + 8], open_[r:r + 8])[
+                                        :, :, :4096, :4280]) for r in range(0, MIS_B, 8)])
+
+    kept = sum(int(labels_to_dense(bits[r:r + 8], open_[r:r + 8])[:, :, :4096, :4280].sum())
+               for r in range(0, MIS_B, 8))
+    cases.append(case(
+        "flash_attention_labeled", f"B={MIS_B} MIS mix fuser 4096x4280 labeled",
+        lambda: fa.flash_attention(qm, km, vm, labels=mix), plain_mix, BF16_REL_TOL,
+        _attn_work("fwd", MIS_B, 8, 4096, 4280, 40, kept=kept), None))
     for label, m in (("self 1024x1024", 1024), ("fuser 1024x1208", 1208)):
         q, k, v = randn(b, 1024, 640), randn(b, m, 640), randn(b, m, 640)
 
@@ -1028,6 +1073,29 @@ def _train_cases(torch, dev, randn, case, labels64):
     return cases
 
 
+def check_tile_plans(torch, dev) -> str:
+    """The labeled kernel's tile plan and label words, built on the card by
+    the pre-pass, against `tile_plan_plain` / `label_words_plain` exactly:
+    the B=16 fuser with META's labels on the 8 conditional rows and the
+    B=80 masked MIS call, 4096 queries over 4280 keys."""
+    from instancediffusion_tpu_torch.kernels import flash_attention as fa
+
+    bits, open_ = meta_labels(torch, dev, 64)
+    layouts = {"B=16 META": (bits.repeat_interleave(8, 0), open_.repeat_interleave(8, 0)),
+               f"B={MIS_B} MIS mix": mis_mix_labels(torch, dev)}
+    shares = []
+    for label, labels in layouts.items():
+        plan, words = fa.tile_plan(labels, 4096, 4280)
+        width = labels[0].shape[1]
+        if not (torch.equal(plan, fa.tile_plan_plain(*labels, 4096, 4280))
+                and torch.equal(words[:, :width], fa.label_words_plain(*labels))):
+            raise RuntimeError(f"kernels: the tile plan of {label} differs from tile_plan_plain "
+                               "or its words from label_words_plain")
+        listed, grid = int(plan[..., 0].sum()), plan[..., fa.PLAN_HEAD:].numel()
+        shares.append(f"{label} tiles listed {listed} of {grid} ({listed / grid:.4f})")
+    return "kernels: tile plans equal to the plain plans: " + "; ".join(shares)
+
+
 def phase_kernels(torch, dev) -> dict:
     """Compare every kernel with its plain version and time it. Batch-2
     cases: the kernel, its plain version and the library call where there is
@@ -1041,6 +1109,7 @@ def phase_kernels(torch, dev) -> dict:
     clock = max_sm_clock_hz()
     log(f"kernels: exp bound at {EX2_PER_CLOCK_SM} exp2/clock/SM x {SMS} SMs x "
         f"{clock / 1e6:.0f} MHz (nvidia-smi clocks.max.sm)")
+    log(check_tile_plans(torch, dev))
     results = {}
     failures = []
     sdpa_bwd_ms = {}
@@ -1093,6 +1162,11 @@ def phase_kernels(torch, dev) -> dict:
                     kern()
                     enc.append(fa.encode_us())
                 extra = f" tensor_map_encode_us={sum(enc) / len(enc):.2f} (host, per call)"
+            if name == "flash_attention_labeled":
+                listed, total = fa.label_tile_share()
+                kern()
+                listed, total = (a - b for a, b in zip(fa.label_tile_share(), (listed, total)))
+                extra = f" tile_share={listed / total:.4f} ({listed} of {total} key tiles)"
             if name.startswith("flash_attention_bwd") and entry.get("main_label") == label:
                 kern()
                 extra = f" tensor_map_encode_us={fa.bwd_encode_us():.2f} (host, one call)"
@@ -1409,6 +1483,7 @@ def phase_request(torch, pipe, card: str, name: str, meta: dict, mis: float,
     import numpy as np
 
     from instancediffusion_tpu_torch import kernels
+    from instancediffusion_tpu_torch.kernels import flash_attention as fa
 
     n_img = N_IMAGES
     t0 = time.perf_counter()
@@ -1424,6 +1499,7 @@ def phase_request(torch, pipe, card: str, name: str, meta: dict, mis: float,
         times.append(time.perf_counter() - t0)
         by_seed[seed] = imgs
     launches = dict(kernels.LAUNCHES)
+    listed, total = fa.label_tile_share()
     if keep is not None:
         keep.update(images=by_seed, seconds=min(times),
                     launches={k: v // len(times) for k, v in launches.items()},
@@ -1446,6 +1522,9 @@ def phase_request(torch, pipe, card: str, name: str, meta: dict, mis: float,
             f"masked={pipe.cfg.model.use_masked_att}: warm-up {warm_s:.2f}s, requests "
             f"{', '.join(f'{t:.3f}s' for t in times)}, {s_img:.4f} s/image on {card}; "
             f"feed-forward calls per request {ff_calls}; launches {launches}")
+    if total:
+        line += (f"; labeled key tiles listed {listed} of {total} "
+                 f"(label_tile_share {listed / total:.4f})")
     return line, launches
 
 

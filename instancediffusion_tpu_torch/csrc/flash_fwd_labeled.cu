@@ -1,6 +1,8 @@
 // The flash forward kernel (flash_fwd_sm90.cuh), LABELED=true, WITH_LSE=false, for
-// every head dim it takes; one instantiation set per source so that nvcc
-// builds the four in parallel.
+// head dims 8-64 (72-128 in flash_fwd_labeled_wide.cu) and the launcher that picks
+// among all of them; one instantiation set per source so that nvcc builds
+// them in parallel.
 #include "flash_fwd_sm90.cuh"
 
+IDT_FA_WIDE(IDT_FA_EXTERN, true, false)
 IDT_FA_INSTANTIATE(true, false)

@@ -50,15 +50,30 @@
 // That covers a ragged kv (4280 fuser keys) and one pre-padded past kv_len
 // (4608).
 //
-// LABELED: int32 bits and open per sequence position, one row of
-// label_stride entries per batch, shared by all heads; a 2-D tensor map
-// brings each tile's 128 key labels into its ring stage on the same mbarrier.
-// Score (i, j) is kept iff open_i | open_j | (bits_i & bits_j) != 0 | i == j,
-// on top of the kv_len test. A consumer warpgroup whose 64 rows are all open
-// (the CFG null half; one vote on a named barrier) runs the unlabeled steps
-// and never reads the key labels. While a row's running max is still -inf
-// the softmax subtracts 0 (exp2(-inf - -inf) would be NaN); a row with no
-// kept key comes out 0.
+// LABELED: instance labels, one int32 word per sequence position and batch
+// row, shared by all heads: the instance bits, with bit 31 set where the
+// position is open (plain version: `label_words_plain`; the callers' bits
+// never use bit 31). Score (i, j) is kept iff
+// open_i | open_j | (bits_i & bits_j) != 0 | i == j, on top of the kv_len
+// test. The pre-pass (flash_attention.cu, tile_plan_kernel) gives each
+// (batch row, 128-row q block) its tile plan: the key tiles that keep at
+// least one score, in the order [the diagonal's edge tile | word tiles |
+// full tiles | the straddling edge tile], each part ascending (so a plan of
+// every tile, all full but the straddling one, is the unlabeled kernel's
+// order). Edge tiles (the partial tile holding the diagonal, the one
+// straddling kv_len) take the full test; word tiles lie off the diagonal and
+// below kv_len, and keep a score iff (word_j & (bits_i | bit 31)) != 0 for a
+// row that is not open; full tiles keep every score and take the unmasked
+// step. The first step is an edge step whatever its tile. The producer loads
+// the listed tiles only, each with its 128 key words on the same mbarrier;
+// tiles the plan leaves out keep no score of the block and are neither
+// loaded nor computed. Two votes on named barriers pick each consumer
+// warpgroup's steps: one whose 64 rows are all open (the CFG null half; the
+// plan then lists every tile) runs the unlabeled steps; one with some open
+// rows, the full test on word tiles too. While a row's running max is still
+// -inf the softmax subtracts 0 (exp2(-inf - -inf) would be NaN); a row with
+// no kept key comes out 0. A block whose plan lists no tile runs one edge
+// step over tile 0, which keeps nothing.
 //
 // WITH_LSE: each q row also writes lse = m + log2(l) in base 2 of the scaled
 // scores (fp32, (B*H, N)), -inf for a row with no kept key; the backward
@@ -76,8 +91,14 @@ constexpr int kBK = 128;            // keys per tile
 constexpr int kThreads = 384;       // producer warpgroup + 2 consumer warpgroups
 constexpr int kAtom = kBK * 128;    // one 128-row x 64-column (128-byte) swizzle atom
 constexpr int kBarWG = 1;           // named barriers 1, 2: the consumers' turns; 3, 4: votes
-// what a key tile's step masks: nothing, keys at or past kv_len, or also by labels
-constexpr int kMaskNone = 0, kMaskKv = 1, kMaskLabels = 2;
+// what a key tile's step masks: nothing, keys at or past kv_len, by label
+// words only (a word tile, rows not open), or by words, open rows, the
+// diagonal and kv_len (an edge tile)
+constexpr int kMaskNone = 0, kMaskKv = 1, kMaskWords = 2, kMaskLabels = 3;
+// a tile plan row: (tiles listed, end of the word tiles, end of the full
+// tiles, 0), then the listed key tiles in step order and -1 after them
+constexpr int kPlanHead = 4;
+constexpr int kOpenBit = static_cast<int>(0x80000000u);
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Where (head, row, batch) go among a tensor map's coordinates 1..3.
@@ -88,8 +109,8 @@ struct MapOrder {
 struct Params {
     __nv_bfloat16* o;
     float* lse;
-    const int* qbits;
-    const int* qopen;
+    const int* words;  // LABELED: (B, label_stride) int32 label words
+    const int* plan;   // LABELED: (B, q blocks, tiles + kPlanHead) tile plans
     long long osb, osh, osr;
     int label_stride, H, N, kv_len;
     MapOrder q, k, v;
@@ -101,8 +122,10 @@ struct Layout {
     static constexpr int KD = (C + 15) / 16;     // k-steps of S = Q K^T (c padded to 16)
     static constexpr int ATOMS = (C + 63) / 64;  // 64-column atoms of a Q, K or V tile
     static constexpr int q_bytes = ATOMS * kAtom;
-    static constexpr int label_bytes = LABELED ? 1024 : 0;  // 2 x 128 int32, 1 KB aligned
+    // 128 int32 key words, in a 1 KB slot so that every stage stays 1 KB aligned
+    static constexpr int label_bytes = LABELED ? 1024 : 0;
     static constexpr int stage_bytes = 2 * ATOMS * kAtom + label_bytes;
+    static constexpr int tx_bytes = 2 * ATOMS * kAtom + (LABELED ? kBK * 4 : 0);  // one stage's TMA
     static constexpr int stages_fit = (200 * 1024 - q_bytes) / stage_bytes;
     static constexpr int kStages = stages_fit < 4 ? stages_fit : 4;
     static_assert(kStages >= 2, "two ring stages must fit");
@@ -117,6 +140,14 @@ __device__ __forceinline__ float ex2(float x) {
     float y;
     asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
     return y;
+}
+
+// two int32 of shared memory; volatile, so that each use loads again rather
+// than holding a tile's 32 words in registers
+__device__ __forceinline__ uint2 lds_u32x2(uint32_t addr) {
+    uint2 v;
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
+    return v;
 }
 
 __device__ __forceinline__ int pick(const MapOrder& o, int slot, int h, int r, int b) {
@@ -156,8 +187,7 @@ template <int C, bool LABELED, bool WITH_LSE>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   const __grid_constant__ CUtensorMap tbits,
-                   const __grid_constant__ CUtensorMap topen, const Params p) {
+                   const __grid_constant__ CUtensorMap twords, const Params p) {
     using L = Layout<C, LABELED>;
     constexpr int S = L::kStages;
     extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -187,17 +217,26 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (threadIdx.x == 0) {
             mbar_expect_tx(qbar, L::q_bytes);
             load_tile(smem, &tq, qbar, L::ATOMS, p.q, h, q0, b);
-            for (int n = 0; n < tiles; ++n) {
-                const int s = n % S;
-                if (n >= S) mbar_wait(&empty[s], ((n / S) - 1) & 1);
+            // step i loads key tile i, or under labels the plan's i-th tile
+            int steps = tiles, listed = 0;
+            const int* list = nullptr;
+            if constexpr (LABELED) {
+                const int* row =
+                    p.plan + ((long long)b * gridDim.x + blockIdx.x) * (tiles + kPlanHead);
+                listed = row[0];
+                list = row + kPlanHead;
+                steps = max(listed, 1);
+            }
+            for (int i = 0; i < steps; ++i) {
+                const int s = i % S;
+                int n = i;
+                if constexpr (LABELED) n = listed > 0 ? list[i] : 0;
+                if (i >= S) mbar_wait(&empty[s], ((i / S) - 1) & 1);
                 unsigned char* st = smem + L::ring + s * L::stage_bytes;
-                mbar_expect_tx(&full[s], L::stage_bytes);
+                mbar_expect_tx(&full[s], L::tx_bytes);
                 load_tile(st + L::k_off, &tk, &full[s], L::ATOMS, p.k, h, n * kBK, b);
                 load_tile(st + L::v_off, &tv, &full[s], L::ATOMS, p.v, h, n * kBK, b);
-                if constexpr (LABELED) {
-                    tma_load_2d(st + L::l_off, &tbits, &full[s], n * kBK, b);
-                    tma_load_2d(st + L::l_off + kBK * 4, &topen, &full[s], n * kBK, b);
-                }
+                if constexpr (LABELED) tma_load_2d(st + L::l_off, &twords, &full[s], n * kBK, b);
             }
         }
     } else {
@@ -210,23 +249,34 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t sq = smem_u32(smem) + wgi * 64 * 128;  // this warpgroup's Q rows
         const uint32_t sring = smem_u32(smem) + L::ring;
 
-        int qb_lo = 0, qo_lo = 0, qb_hi = 0, qo_hi = 0;
+        // a row's test word (its bits and bit 31) and whether it is open
+        uint32_t qw_lo = 0, qw_hi = 0;
+        bool qo_lo = false, qo_hi = false;
+        int listed = 0, word_end = 0, full_end = 0;
+        const int* list = nullptr;
         if constexpr (LABELED) {
-            const int* bb = p.qbits + (long long)b * p.label_stride;
-            const int* ob = p.qopen + (long long)b * p.label_stride;
-            if (row_lo < p.N) {
-                qb_lo = bb[row_lo];
-                qo_lo = ob[row_lo];
-            }
-            if (row_hi < p.N) {
-                qb_hi = bb[row_hi];
-                qo_hi = ob[row_hi];
-            }
+            const int* wb = p.words + (long long)b * p.label_stride;
+            const int w_lo = row_lo < p.N ? wb[row_lo] : 0;
+            const int w_hi = row_hi < p.N ? wb[row_hi] : 0;
+            qo_lo = w_lo < 0;
+            qo_hi = w_hi < 0;
+            qw_lo = static_cast<uint32_t>(w_lo | kOpenBit);
+            qw_hi = static_cast<uint32_t>(w_hi | kOpenBit);
+            const int* row =
+                p.plan + ((long long)b * gridDim.x + blockIdx.x) * (tiles + kPlanHead);
+            listed = row[0];
+            word_end = row[1];
+            full_end = row[2];
+            list = row + kPlanHead;
         }
         // a warpgroup whose rows are all open (the CFG null half) keeps every
-        // key below kv_len and need not read the key labels
-        bool wg_open = !LABELED;
-        if constexpr (LABELED) wg_open = named_bar_all(3 + wgi, 128, qo_lo > 0 && qo_hi > 0);
+        // key below kv_len and need not read the key words; one whose rows
+        // are all closed tests word tiles by words alone
+        bool wg_open = !LABELED, wg_closed = false;
+        if constexpr (LABELED) {
+            wg_open = named_bar_all(3 + wgi, 128, qo_lo && qo_hi);
+            wg_closed = named_bar_all(3 + wgi, 128, !qo_lo && !qo_hi);
+        }
 
         float o[C / 2];
 #pragma unroll
@@ -242,17 +292,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 
         mbar_wait(qbar, 0);
         if (wgi == 1) named_bar_arrive(kBarWG, 256);  // consumer 0 goes first
-        // One key tile: S = Q K^T of tile n and (HAS_PV) P V of tile n - 1.
-        // The first tile has no P V; it gets its own copy of the body, so
-        // that every wait below is unconditional and ptxas can see which
-        // wgmmas are in flight where.
-        auto step = [&](const int n, auto has_pv, auto mask_kind) {
+        // Step pos: S = Q K^T of key tile n (in ring stage pos % S) and
+        // (HAS_PV) P V of the previous step's tile. The first step has no
+        // P V; it gets its own copy of the body, so that every wait below is
+        // unconditional and ptxas can see which wgmmas are in flight where.
+        auto step = [&](const int pos, const int n, auto has_pv, auto mask_kind) {
             constexpr bool HAS_PV = decltype(has_pv)::value;
             constexpr int MASK = decltype(mask_kind)::value;
             constexpr bool MASKED = MASK != kMaskNone;
-            const int s = n % S;
+            const int s = pos % S;
             const uint32_t st = sring + s * L::stage_bytes;
-            mbar_wait(&full[s], (n / S) & 1);
+            mbar_wait(&full[s], (pos / S) & 1);
             // every descriptor is computed before the fence: a register
             // defined between two wgmmas of a batch serialises them (C7513)
             uint64_t dk[KD], dv[kBK / 16];
@@ -262,7 +312,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 reg_fence(dk[kk]);
             }
             if constexpr (HAS_PV) {
-                const uint32_t sv = sring + ((n - 1) % S) * L::stage_bytes + L::v_off;
+                const uint32_t sv = sring + ((pos - 1) % S) * L::stage_bytes + L::v_off;
 #pragma unroll
                 for (int kc = 0; kc < kBK / 16; ++kc) {
                     dv[kc] = wgmma_desc_sw128(sv + kc * 16 * 128, kAtom, 1024);
@@ -290,42 +340,45 @@ __global__ void __launch_bounds__(kThreads, 1)
 
             // From here until P V is waited for, sacc is only read: a
             // register write to it while a wgmma is in flight would make
-            // ptxas serialise every wgmma (C7515). The mask is kept as bits
-            // (bit 2j + e of row lo / hi: key 8j + 2t + e of the tile).
+            // ptxas serialise every wgmma (C7515). Kv and edge steps keep the
+            // mask as bits (bit 2j + e of row lo / hi: key 8j + 2t + e of the
+            // tile); word steps test the key words where the softmax reads a score.
             const int k0 = n * kBK;
             uint32_t keep_lo = ~0u, keep_hi = ~0u;
-            if constexpr (MASKED) {
-                const int* lb = reinterpret_cast<const int*>(smem + L::ring + s * L::stage_bytes +
-                                                             L::l_off);
-                auto mask = [&](auto by_labels) {
+            const uint32_t lw = sring + s * L::stage_bytes + L::l_off;  // the tile's key words
+            if constexpr (MASK == kMaskKv || MASK == kMaskLabels) {
 #pragma unroll
-                    for (int j = 0; j < kBK / 8; ++j) {
+                for (int j = 0; j < kBK / 8; ++j) {
+                    uint2 kw = make_uint2(0u, 0u);  // the words of keys 8j + 2t and 8j + 2t + 1
+                    if constexpr (MASK == kMaskLabels) kw = lds_u32x2(lw + (j * 8 + 2 * t) * 4);
 #pragma unroll
-                        for (int e = 0; e < 2; ++e) {
-                            const int kj = j * 8 + 2 * t + e;
-                            const int col = k0 + kj;
-                            bool k_lo = col < p.kv_len, k_hi = k_lo;
-                            if constexpr (decltype(by_labels)::value) {
-                                const int kbits = lb[kj];
-                                const bool kopen = lb[kBK + kj] > 0;
-                                k_lo = k_lo && (kopen || qo_lo > 0 || (qb_lo & kbits) != 0 ||
-                                                row_lo == col);
-                                k_hi = k_hi && (kopen || qo_hi > 0 || (qb_hi & kbits) != 0 ||
-                                                row_hi == col);
-                            }
-                            if (!k_lo) keep_lo &= ~(1u << (2 * j + e));
-                            if (!k_hi) keep_hi &= ~(1u << (2 * j + e));
+                    for (int e = 0; e < 2; ++e) {
+                        const int col = k0 + j * 8 + 2 * t + e;
+                        bool k_lo = col < p.kv_len, k_hi = k_lo;
+                        if constexpr (MASK == kMaskLabels) {
+                            const uint32_t w = e ? kw.y : kw.x;
+                            k_lo = k_lo && (qo_lo || (qw_lo & w) != 0 || row_lo == col);
+                            k_hi = k_hi && (qo_hi || (qw_hi & w) != 0 || row_hi == col);
                         }
+                        if (!k_lo) keep_lo &= ~(1u << (2 * j + e));
+                        if (!k_hi) keep_hi &= ~(1u << (2 * j + e));
                     }
-                };
-                mask(std::bool_constant<MASK == kMaskLabels>{});
+                }
             }
             // online softmax in base 2 of the scaled scores
             float ms_lo, ms_hi, mn_lo, mn_hi, rs_lo = 0.f, rs_hi = 0.f;
             uint32_t pn[kBK / 16][4];  // this tile's P; pf still feeds the P V in flight
             {
-                auto kept = [](uint32_t bits, int i, float v) {
+                // score v of key 2j + e of the tile's 8j + 2t pair, or -inf
+                // where masked: word steps test the row's word against the
+                // key's (w), the others a bit of keep
+                auto kept = [](uint32_t bits, int i, uint32_t qw, uint32_t w, float v) {
+                    if constexpr (MASK == kMaskWords) return (qw & w) != 0 ? v : -INFINITY;
                     return !MASKED || ((bits >> i) & 1u) ? v : -INFINITY;
+                };
+                auto words = [&](int j) {
+                    if constexpr (MASK == kMaskWords) return lds_u32x2(lw + (j * 8 + 2 * t) * 4);
+                    return make_uint2(0u, 0u);
                 };
                 // four partial maxima and sums per row: short dependency chains
                 float ml[4], mh[4];
@@ -333,10 +386,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                 for (int i = 0; i < 4; ++i) ml[i] = mh[i] = -INFINITY;
 #pragma unroll
                 for (int j = 0; j < kBK / 8; ++j) {
-                    ml[j % 4] = fmaxf(ml[j % 4], fmaxf(kept(keep_lo, 2 * j, sacc[4 * j]),
-                                                       kept(keep_lo, 2 * j + 1, sacc[4 * j + 1])));
-                    mh[j % 4] = fmaxf(mh[j % 4], fmaxf(kept(keep_hi, 2 * j, sacc[4 * j + 2]),
-                                                       kept(keep_hi, 2 * j + 1, sacc[4 * j + 3])));
+                    const uint2 w = words(j);
+                    ml[j % 4] = fmaxf(ml[j % 4],
+                                      fmaxf(kept(keep_lo, 2 * j, qw_lo, w.x, sacc[4 * j]),
+                                            kept(keep_lo, 2 * j + 1, qw_lo, w.y, sacc[4 * j + 1])));
+                    mh[j % 4] = fmaxf(mh[j % 4],
+                                      fmaxf(kept(keep_hi, 2 * j, qw_hi, w.x, sacc[4 * j + 2]),
+                                            kept(keep_hi, 2 * j + 1, qw_hi, w.y, sacc[4 * j + 3])));
                 }
                 float mx_lo = fmaxf(fmaxf(ml[0], ml[1]), fmaxf(ml[2], ml[3]));
                 float mx_hi = fmaxf(fmaxf(mh[0], mh[1]), fmaxf(mh[2], mh[3]));
@@ -358,13 +414,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                 float sl[4] = {0.f, 0.f, 0.f, 0.f}, sh[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
                 for (int j = 0; j < kBK / 8; ++j) {
-                    const float p0 = ex2(fmaf(kept(keep_lo, 2 * j, sacc[4 * j]), p.sl2, -ms_lo));
-                    const float p1 =
-                        ex2(fmaf(kept(keep_lo, 2 * j + 1, sacc[4 * j + 1]), p.sl2, -ms_lo));
-                    const float p2 =
-                        ex2(fmaf(kept(keep_hi, 2 * j, sacc[4 * j + 2]), p.sl2, -ms_hi));
-                    const float p3 =
-                        ex2(fmaf(kept(keep_hi, 2 * j + 1, sacc[4 * j + 3]), p.sl2, -ms_hi));
+                    const uint2 w = words(j);
+                    const float p0 =
+                        ex2(fmaf(kept(keep_lo, 2 * j, qw_lo, w.x, sacc[4 * j]), p.sl2, -ms_lo));
+                    const float p1 = ex2(
+                        fmaf(kept(keep_lo, 2 * j + 1, qw_lo, w.y, sacc[4 * j + 1]), p.sl2, -ms_lo));
+                    const float p2 = ex2(
+                        fmaf(kept(keep_hi, 2 * j, qw_hi, w.x, sacc[4 * j + 2]), p.sl2, -ms_hi));
+                    const float p3 = ex2(
+                        fmaf(kept(keep_hi, 2 * j + 1, qw_hi, w.y, sacc[4 * j + 3]), p.sl2, -ms_hi));
                     sl[j % 4] += p0 + p1;
                     sh[j % 4] += p2 + p3;
                     pn[j / 2][2 * (j % 2)] = pack_bf16(p0, p1);
@@ -385,7 +443,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 for (int kc = 0; kc < kBK / 16; ++kc)
 #pragma unroll
                     for (int i = 0; i < 4; ++i) reg_fence(pf[kc][i]);
-                mbar_arrive(&empty[(n - 1) % S]);
+                mbar_arrive(&empty[(pos - 1) % S]);
             }
 #pragma unroll
             for (int d = 0; d < C / 8; ++d) {
@@ -401,24 +459,44 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
                 for (int i = 0; i < 4; ++i) pf[kc][i] = pn[kc][i];
         };
-        // The first tile and the one straddling kv_len take a masked step;
-        // the full tiles between need no mask, unless the warpgroup has rows
-        // that are not open under labels. Each loop runs whole steps of one
-        // variant, chosen by its trip count (uniform over the warpgroup): a
-        // branch inside a loop makes ptxas serialise the wgmmas (C7513).
+        // Each loop runs whole steps of one variant, chosen by its trip count
+        // (uniform over the warpgroup): a branch inside a loop makes ptxas
+        // serialise the wgmmas (C7513).
+        using MaskNone = std::integral_constant<int, kMaskNone>;
         using MaskKv = std::integral_constant<int, kMaskKv>;
+        using MaskWords = std::integral_constant<int, kMaskWords>;
         using MaskLabels = std::integral_constant<int, kMaskLabels>;
-        step(0, std::false_type{}, std::conditional_t<LABELED, MaskLabels, MaskKv>{});
-        const int none_end = wg_open ? p.kv_len / kBK : 1;
-        for (int n = 1; n < none_end; ++n)
-            step(n, std::true_type{}, std::integral_constant<int, kMaskNone>{});
-        const int kv_end = wg_open ? tiles : 1;
-        for (int n = max(1, none_end); n < kv_end; ++n) step(n, std::true_type{}, MaskKv{});
-        if constexpr (LABELED)
-            for (int n = max(1, kv_end); n < tiles; ++n) step(n, std::true_type{}, MaskLabels{});
+        int steps = tiles;
+        if constexpr (LABELED) {
+            // the plan's tiles in order, the first an edge step; then word
+            // tiles by the word test, or the full test where some row is
+            // open, or none where all are; full tiles none; the straddling
+            // edge tile the full test, or kv_len alone where all rows are open
+            steps = max(listed, 1);
+            step(0, listed > 0 ? list[0] : 0, std::false_type{}, MaskLabels{});
+            const int mixed_end = wg_open || wg_closed ? 0 : word_end;
+            for (int i = 1; i < mixed_end; ++i) step(i, list[i], std::true_type{}, MaskLabels{});
+            const int words_end = wg_closed ? word_end : 0;
+            for (int i = 1; i < words_end; ++i) step(i, list[i], std::true_type{}, MaskWords{});
+            for (int i = wg_open ? 1 : max(1, word_end); i < full_end; ++i)
+                step(i, list[i], std::true_type{}, MaskNone{});
+            const int kv_end = wg_open ? steps : 0;
+            for (int i = max(1, full_end); i < kv_end; ++i)
+                step(i, list[i], std::true_type{}, MaskKv{});
+            const int labels_end = wg_open ? 0 : steps;
+            for (int i = max(1, full_end); i < labels_end; ++i)
+                step(i, list[i], std::true_type{}, MaskLabels{});
+        } else {
+            // the first tile and the one straddling kv_len take a kv-masked
+            // step, the full tiles between none
+            step(0, 0, std::false_type{}, MaskKv{});
+            const int none_end = p.kv_len / kBK;
+            for (int n = 1; n < none_end; ++n) step(n, n, std::true_type{}, MaskNone{});
+            for (int n = max(1, none_end); n < tiles; ++n) step(n, n, std::true_type{}, MaskKv{});
+        }
         // P V of the last tile
         {
-            const uint32_t sv = sring + ((tiles - 1) % S) * L::stage_bytes + L::v_off;
+            const uint32_t sv = sring + ((steps - 1) % S) * L::stage_bytes + L::v_off;
             uint64_t dv[kBK / 16];
 #pragma unroll
             for (int kc = 0; kc < kBK / 16; ++kc) {
@@ -469,7 +547,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Everything a launch needs; the tensor maps are encoded on the host.
 struct Launch {
-    CUtensorMap tq, tk, tv, tbits, topen;
+    CUtensorMap tq, tk, tv, twords;
     Params p;
     int B, c;
     cudaStream_t stream;
@@ -482,7 +560,7 @@ cudaError_t launch_c(const Launch& a) {
     cudaError_t err = idt_allow_smem(kern, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((a.p.N + kBQ - 1) / kBQ, a.B * a.p.H);
-    kern<<<grid, kThreads, smem, a.stream>>>(a.tq, a.tk, a.tv, a.tbits, a.topen, a.p);
+    kern<<<grid, kThreads, smem, a.stream>>>(a.tq, a.tk, a.tv, a.twords, a.p);
     return cudaGetLastError();
 }
 
@@ -490,7 +568,9 @@ cudaError_t launch_c(const Launch& a) {
 template <bool LABELED, bool WITH_LSE>
 cudaError_t launch(const Launch& a);
 // each defined by IDT_FA_INSTANTIATE in its own source (flash_fwd_*.cu), so
-// nvcc compiles the four in parallel
+// nvcc compiles the four in parallel; the labeled ones leave head dims 72-128
+// to a source of their own (flash_fwd_*labeled_wide.cu, IDT_FA_WIDE), as the
+// labeled kernels take the longest to compile
 template <>
 cudaError_t launch<false, false>(const Launch& a);
 template <>
@@ -525,5 +605,16 @@ cudaError_t launch<true, true>(const Launch& a);
         }                                                                              \
     }                                                                                  \
     }
+
+// head dims 72-128 of one (LABELED, WITH_LSE): X(c, LABELED, WITH_LSE) for
+// each, X = IDT_FA_EXTERN (instantiated elsewhere) or IDT_FA_DEFINE
+#define IDT_FA_WIDE(X, LABELED, WITH_LSE)                                                \
+    X(72, LABELED, WITH_LSE) X(80, LABELED, WITH_LSE) X(88, LABELED, WITH_LSE)           \
+    X(96, LABELED, WITH_LSE) X(104, LABELED, WITH_LSE) X(112, LABELED, WITH_LSE)         \
+    X(120, LABELED, WITH_LSE) X(128, LABELED, WITH_LSE)
+#define IDT_FA_EXTERN(C, LABELED, WITH_LSE) \
+    extern template cudaError_t idt_fa::launch_c<C, LABELED, WITH_LSE>(const idt_fa::Launch&);
+#define IDT_FA_DEFINE(C, LABELED, WITH_LSE) \
+    template cudaError_t idt_fa::launch_c<C, LABELED, WITH_LSE>(const idt_fa::Launch&);
 
 }  // namespace idt_fa

@@ -6,6 +6,9 @@ raises. `LAUNCHES` counts kernel launches per wrapper, so a run can show
 that its main path went through the kernels. `ROUTES` counts the calls a
 shape-or-dtype switch sent away from a kernel to a library route
 (`ff_geglu_unfused`), so a run can check both sides of the switch.
+`LABEL_TILES` holds, per CUDA device, an int64 pair on that device that the
+labeled flash kernel's tile plans add to: key tiles listed, key tiles in the
+grid (`flash_attention.label_tile_share` reads it).
 """
 
 from __future__ import annotations
@@ -16,11 +19,14 @@ import torch
 
 LAUNCHES: collections.Counter = collections.Counter()
 ROUTES: collections.Counter = collections.Counter()
+LABEL_TILES: dict = {}
 
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
     ROUTES.clear()
+    for pair in LABEL_TILES.values():
+        pair.zero_()  # in place: captured graphs keep adding to the same memory
 
 
 def kernel_dtype(dtype, fp32_too: bool = False) -> bool:

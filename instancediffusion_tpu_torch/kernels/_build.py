@@ -42,6 +42,7 @@ _NVCC_VERSION: str | None = None
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "idt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _P],
+    "idt_flash_tile_plan": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "idt_flash_bwd_dq": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _F, _P],
     "idt_flash_bwd_dkv": [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

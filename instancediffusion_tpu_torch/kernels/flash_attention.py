@@ -24,7 +24,16 @@ indexed by sequence position over the k tokens (L >= kv_len; positions past
 kv_len are ignored); q covers the first N positions. Labels are per batch
 row and shared by every head. The kernel keeps score (i, j) iff
 open_i | open_j | (bits_i & bits_j) != 0 | i == j (`instance_labels` gives
-the encoding); the plain version is `sdpa_fp32` under `labels_to_dense`.
+the encoding, with at most 30 instances; bit 31, the sign bit, is reserved:
+the label words set it where a position is open, so bits must leave it
+clear); the plain version is
+`sdpa_fp32` under `labels_to_dense`. Before a labeled launch the wrapper
+launches the tile plan (`tile_plan`, a pre-pass in `csrc/flash_attention.cu`
+on the same stream, no host sync): one int32 word per position
+(`label_words_plain`) and, for each batch row and 128-row q block, the key
+tiles that keep at least one score, split into tiles that keep every score
+and the rest (`tile_plan_plain`). The kernel loads and computes the listed
+tiles only; `label_tile_share` counts them.
 
 Training (`flash_attention_trainable`, `_labeled`): autograd Functions over
 the same (B,H,N,c) head views, unscaled q, no kv_len padding. Their forward
@@ -50,7 +59,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from instancediffusion_tpu_torch.kernels import LAUNCHES
+from instancediffusion_tpu_torch.kernels import LABEL_TILES, LAUNCHES
 from instancediffusion_tpu_torch.kernels import _build
 from instancediffusion_tpu_torch.ops.attention import labels_to_dense, sdpa_fp32
 
@@ -97,24 +106,142 @@ def _check_operands(name, tensors, strides, b, h, c):
         raise ValueError(f"{name}: B*H={b * h} exceeds the grid limit")
 
 
-def _label_args(name, labels, q):
-    """(bits pointer, open pointer, label stride, kernel name, kept tensors)
-    for the C launchers; null pointers for unlabeled attention. The rows are
-    padded to a multiple of 4 entries (16 bytes), as the forward kernel's
-    label tensor map needs."""
-    if labels is None:
-        return 0, 0, 0, name, None
+def _padded_labels(labels):
+    """(bits, open) contiguous, rows padded to a multiple of 4 entries (16
+    bytes), as the kernels' label tensor maps need."""
     bits, open_ = (t.contiguous() for t in labels)
-    if bits.device != q.device or open_.device != q.device:
-        raise ValueError(f"{name}: labels on {bits.device}, q on {q.device}")
     pad = -bits.shape[1] % 4
     if pad:
         bits, open_ = F.pad(bits, (0, pad)), F.pad(open_, (0, pad))
+    return bits, open_
+
+
+def _check_label_device(name, labels, q):
+    if labels[0].device != q.device or labels[1].device != q.device:
+        raise ValueError(f"{name}: labels on {labels[0].device}, q on {q.device}")
+
+
+def _label_args(name, labels, q):
+    """(bits pointer, open pointer, label stride, kernel name, kept tensors)
+    for the backward launchers; null pointers for unlabeled attention."""
+    if labels is None:
+        return 0, 0, 0, name, None
+    _check_label_device(name, labels, q)
+    bits, open_ = _padded_labels(labels)
     return bits.data_ptr(), open_.data_ptr(), bits.shape[1], name + "_labeled", (bits, open_)
 
 
 TMA_BOX_ROWS = 128  # rows per TMA box: the kernel's query block and key tile
 TMA_BOX_COLS = 64  # head-dim columns per box: 128 bytes, one 128-byte swizzle atom
+PLAN_HEAD = 4  # a tile plan row: (tiles listed, end of word tiles, end of full tiles, 0), tiles
+OPEN_BIT = -(1 << 31)  # bit 31 of an int32 label word: the position is open
+
+
+def label_words_plain(bits, open_):
+    """The int32 label words the labeled forward kernel reads: the bits, with
+    bit 31 set where the position is open."""
+    return torch.where(open_ > 0, bits | OPEN_BIT, bits)
+
+
+def _chunk_summaries(bits, open_, valid, chunks):
+    """Per 128-position chunk of the first `valid` positions: the OR of the
+    bits, the AND of the bits of the positions not open (bit planes, (B,
+    chunks, 32) bool), whether some position is open and whether some is
+    not ((B, chunks) bool)."""
+    b, span = bits.shape[0], chunks * TMA_BOX_ROWS
+    bits, open_ = bits[:, :span], open_[:, :span]
+    if bits.shape[1] < span:
+        pad = span - bits.shape[1]
+        bits, open_ = F.pad(bits, (0, pad)), F.pad(open_, (0, pad))
+    live = torch.arange(span, device=bits.device) < valid
+    planes = ((bits[..., None] >> torch.arange(32, device=bits.device)) & 1) > 0
+    opened, closed = (open_ > 0) & live, (open_ <= 0) & live
+    chunked = lambda t: t.reshape(b, chunks, TMA_BOX_ROWS, *t.shape[2:])
+    return (chunked(planes & live[:, None]).any(2), chunked(planes | ~closed[..., None]).all(2),
+            chunked(opened).any(2), chunked(closed).any(2))
+
+
+def tile_plan_plain(bits, open_, n, kv_len):
+    """The tile plan of a labeled call (the pre-pass kernel computes the
+    same): int32 (B, ceil(n/128), ceil(kv_len/128) + PLAN_HEAD). Row (b, qb)
+    holds the number of key tiles listed, where the word tiles end and
+    where the full tiles end, a 0, then the listed tiles: the diagonal's
+    edge tile, the word tiles, the full tiles (each part ascending), the
+    straddling edge tile, and -1 after them. A tile is listed iff it keeps
+    at least one score of the q block (`labels_to_dense` over the first n
+    rows and kv_len keys); full tiles keep every score and lie below
+    kv_len; edge tiles hold the diagonal (tile qb) or straddle kv_len; the
+    rest are word tiles. From per-chunk summaries: listed iff a row or a
+    key of the pair is open, a row and a key share a bit (the ORs
+    intersect) or the tile holds the diagonal; full iff no row or no key is
+    closed, or every closed row shares a bit with every closed key (the
+    ANDs intersect)."""
+    b = bits.shape[0]
+    qblocks, tiles = -(-n // TMA_BOX_ROWS), -(-kv_len // TMA_BOX_ROWS)
+    chunks = max(qblocks, tiles)
+    q_or, q_and, q_open, q_closed = (t[:, :qblocks] for t in
+                                     _chunk_summaries(bits, open_, n, chunks))
+    k_or, k_and, k_open, k_closed = (t[:, :tiles] for t in
+                                     _chunk_summaries(bits, open_, kv_len, chunks))
+    qi = torch.arange(qblocks, device=bits.device)[:, None]
+    tj = torch.arange(tiles, device=bits.device)[None, :]
+    diag = qi == tj
+    straddle = (tj == tiles - 1) & (kv_len % TMA_BOX_ROWS != 0)
+    share = lambda a, c: (a[:, :, None] & c[:, None, :]).any(-1)
+    listed = q_open[:, :, None] | k_open[:, None, :] | share(q_or, k_or) | diag
+    full = ~straddle & (~q_closed[:, :, None] | ~k_closed[:, None, :] | share(q_and, k_and))
+    edge = torch.where(diag, 0, torch.where(straddle, 3, 1))
+    kind = torch.where(full, 2, torch.where(listed, edge, 4))
+    key, order = torch.sort(kind * tiles + tj, dim=-1)
+    plan = torch.zeros((b, qblocks, tiles + PLAN_HEAD), dtype=torch.int32, device=bits.device)
+    plan[..., 0] = (kind < 4).sum(-1)
+    plan[..., 1] = (kind < 2).sum(-1)
+    plan[..., 2] = (kind < 3).sum(-1)
+    plan[..., PLAN_HEAD:] = torch.where(key < 4 * tiles, order, -1)
+    return plan
+
+
+def _tile_counter(device):
+    """The device's (tiles listed, tiles in the grid) int64 pair, made on
+    first use outside a graph capture; None inside a capture that finds
+    none (a pair made there would be the graph's)."""
+    pair = LABEL_TILES.get(device)
+    if pair is None and not torch.cuda.is_current_stream_capturing():
+        pair = LABEL_TILES[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return pair
+
+
+def label_tile_share() -> tuple[int, int]:
+    """(key tiles the labeled kernel's plans listed, key tiles in their
+    grids), per (batch row, q block), summed over devices since the last
+    `kernels.reset_launch_counts()`. Copies the counters to the host (a
+    sync): read it outside timed work."""
+    listed = total = 0
+    for pair in LABEL_TILES.values():
+        a, t = pair.tolist()
+        listed, total = listed + a, total + t
+    return listed, total
+
+
+def tile_plan(labels, n, kv_len):
+    """(plan, words) of a labeled call on the card: the pre-pass kernel,
+    launched on the current stream, which also adds to the device's
+    `label_tile_share` counters (plain versions: `tile_plan_plain`,
+    `label_words_plain`). The words' rows are padded to a multiple of 4
+    entries. labels: CUDA int32 (B, L), L >= max(n, kv_len)."""
+    bits, open_ = _padded_labels(labels)
+    b, stride = bits.shape
+    words = torch.empty_like(bits)
+    plan = torch.empty((b, -(-n // TMA_BOX_ROWS), -(-kv_len // TMA_BOX_ROWS) + PLAN_HEAD),
+                       dtype=torch.int32, device=bits.device)
+    pair = _tile_counter(bits.device)
+    with torch.cuda.device(bits.device):
+        err = _build.lib().idt_flash_tile_plan(
+            bits.data_ptr(), open_.data_ptr(), stride, b, n, kv_len, words.data_ptr(),
+            plan.data_ptr(), 0 if pair is None else pair.data_ptr(), _build.stream_of(bits))
+    _build.check(err, "flash_tile_plan")
+    LAUNCHES["flash_tile_plan"] += 1
+    return plan, words
 
 
 class TmaPlan(NamedTuple):
@@ -250,12 +377,18 @@ def _launch(name, q, k, v, out, b, h, n, kv_len, c, strides, pre_scaled,
         maps += tma_plan((b, h), strides[3 * i:3 * i + 3], c, rows).args(t.data_ptr())
     maps = (ctypes.c_longlong * len(maps))(*maps)
     out_strides = (ctypes.c_longlong * 3)(*strides[9:12])
-    bits_ptr, open_ptr, label_stride, name, _keep = _label_args(name, labels, q)
+    plan = words = None
+    if labels is not None:
+        _check_label_device(name, labels, q)
+        plan, words = tile_plan(labels, n, kv_len)
+        name += "_labeled"
     lib = _build.lib()
     with torch.cuda.device(q.device):
         err = lib.idt_flash_attention(
-            maps, out.data_ptr(), 0 if lse is None else lse.data_ptr(), bits_ptr, open_ptr,
-            label_stride, b, h, n, kv_len, c, out_strides, float(scale), _build.stream_of(q),
+            maps, out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+            0 if words is None else words.data_ptr(), 0 if plan is None else plan.data_ptr(),
+            0 if words is None else words.shape[1], b, h, n, kv_len, c, out_strides,
+            float(scale), _build.stream_of(q),
         )
     _build.check(err, name)
     LAUNCHES[name] += 1
@@ -271,7 +404,8 @@ def _check_shapes(name, q, k, v, same):
 def flash_attention(q, k, v, labels=None, pre_scaled=False, kv_len=None):
     """q (B,H,N,c), k/v (B,H,M,c) -> (B,H,N,c). The inputs may be strided
     head views of (B,N,H*c) projections; the output is a (B,H,N,c) view of
-    a (B,N,H,c) buffer, so merging heads afterwards is free."""
+    a (B,N,H,c) buffer, so merging heads afterwards is free. labels: (bits,
+    open) as the module docstring says; bit 31 of the bits is reserved."""
     _check_shapes("flash_attention", q, k, v, (0, 1, 3))
     b, h, n, c = q.shape
     true_m = _true_kv(k.shape[2], kv_len)
@@ -553,8 +687,11 @@ def instance_labels(att_masks, n_objs: int, seg_tokens: int = 64):
       box/polygon token k:    bits = GROUNDING_BIT | (1 << k), not open
       point/scribble tokens:  bits = GROUNDING_BIT, open
       seg tokens:             bits = GROUNDING_BIT, open
-    A sample with no mask at all is open everywhere (unmasked)."""
+    A sample with no mask at all is open everywhere (unmasked). n_objs is at
+    most 30: bit 30 is GROUNDING_BIT and bit 31 is reserved."""
     b, n, s, _ = att_masks.shape
+    if n > 30:
+        raise ValueError(f"instance_labels: {n} instances; the labels hold at most 30")
     dev = att_masks.device
     masks = att_masks.reshape(b, n, s * s) > 0
     powers = (1 << torch.arange(n, dtype=torch.int32, device=dev))

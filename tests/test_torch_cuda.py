@@ -143,7 +143,9 @@ def test_kernel_matches_plain_on_card(dev, name):
     kern, plain, tol = _case(name, dev)
     out, ref = kern().float(), plain().float()
     torch.cuda.synchronize()
-    assert sum(kernels.LAUNCHES.values()) == 1
+    plans = int("labeled" in name)  # a labeled call launches its tile plan first
+    assert kernels.LAUNCHES["flash_tile_plan"] == plans
+    assert sum(kernels.LAUNCHES.values()) == 1 + plans
     assert out.shape == ref.shape and torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= tol * ref.abs().max().item()
 
@@ -356,7 +358,9 @@ def test_flash_forward_at_main_batch_on_card(dev, case):
     kernels.reset_launch_counts()
     out = kern()
     torch.cuda.synchronize()
-    assert sum(kernels.LAUNCHES.values()) == 1
+    plans = int(case == "labeled")  # a labeled call launches its tile plan first
+    assert kernels.LAUNCHES["flash_tile_plan"] == plans
+    assert sum(kernels.LAUNCHES.values()) == 1 + plans
     assert out.shape == ref.shape and torch.isfinite(out.float()).all()
     assert (out.float() - ref.float()).abs().max() <= REL_TOL * ref.float().abs().max()
 
@@ -401,6 +405,149 @@ def test_labeled_fully_masked_rows_on_card(dev):
     pout, plse = fa.flash_attention_fwd_lse_plain(q, k, v, (bits, open_))
     assert (out2.float() - pout.float()).abs().max() <= REL_TOL * pout.float().abs().max()
     assert torch.equal(torch.isinf(lse), torch.isinf(plse))
+
+
+# ---------------------------------------------------------------------------
+# the labeled kernel's tile plan (the pre-pass) and the tiles it skips
+# ---------------------------------------------------------------------------
+
+
+def _mis_mix_labels(dev, size=64):
+    """(bits, open) of the B=80 masked MIS call: 8 rows with META-like
+    boxes (the images' global trajectories), 32 with one of those boxes
+    each (the instances' own), 40 open (the CFG null half)."""
+    import chip_smoke
+
+    return chip_smoke.mis_mix_labels(torch, dev, BOXES + [[0.02, 0.55, 0.98, 0.98]], size)
+
+
+def _plan_layouts(dev):
+    """(labels, n, kv_len) of the layouts the device plan is checked on."""
+    late = _late_labels(dev, 2304, 1024)
+    pos = torch.arange(256, device=dev)
+    no_keys = (torch.where(pos < 128, 1, 4).int().expand(2, 256).contiguous(),
+               torch.zeros(2, 256, dtype=torch.int32, device=dev))
+    padded = tuple(torch.nn.functional.pad(t, (0, 328)) for t in _box_labels(dev, 64))
+    return [(_mis_mix_labels(dev), 4096, 4280), (_box_labels(dev, 32), 1024, 1208),
+            (late, 2048, 2100), (no_keys, 256, 128), (padded, 4096, 4280),
+            (tuple(t[:, :4281] for t in _box_labels(dev, 64, seg_tokens=65)), 4096, 4281)]
+
+
+@pytest.mark.cuda
+def test_tile_plan_kernel_matches_plain_on_card(dev):
+    """The pre-pass's plans and label words equal `tile_plan_plain` and
+    `label_words_plain` exactly: the MIS mix, a ds2 raster, late labels,
+    rows with no kept key, labels pre-padded past kv_len, and a ragged
+    4281-wide row padded to the 16-byte stride."""
+    for labels, n, kv_len in _plan_layouts(dev):
+        plan, words = fa.tile_plan(labels, n, kv_len)
+        torch.cuda.synchronize()
+        cpu = tuple(t.cpu() for t in labels)
+        assert torch.equal(plan.cpu(), fa.tile_plan_plain(*cpu, n, kv_len)), (n, kv_len)
+        width = cpu[0].shape[1]
+        assert words.shape[1] == -(-width // 4) * 4
+        assert torch.equal(words[:, :width].cpu(), fa.label_words_plain(*cpu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lse", [False, True], ids=["k1l", "k6l"])
+def test_labeled_kernel_at_the_mis_mix_on_card(dev, lse):
+    """K1-L (and K6-L, the training forward with lse) at the B=80 masked MIS
+    call: 40 open rows, 8 four-instance and 32 one-instance rows, ds1's
+    4096 x 4280 fuser, against plain fp32 in slices of 8 rows."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    labels = _mis_mix_labels(dev)
+    q, k, v = (_heads(_rnd(g, dev, 80, s, 320), 8) for s in (4096, 4280, 4280))
+    kernels.reset_launch_counts()
+    if lse:
+        out, got_lse = fa.flash_attention_fwd_lse(q, k, v, labels)
+    else:
+        out = fa.flash_attention(q, k, v, labels=labels)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_trainable_labeled" if lse
+                            else "flash_attention_labeled"] == 1
+    assert kernels.LAUNCHES["flash_tile_plan"] == 1
+    for r in range(0, 80, 8):
+        sl = tuple(t[r:r + 8] for t in labels)
+        if lse:
+            ref, ref_lse = fa.flash_attention_fwd_lse_plain(q[r:r + 8], k[r:r + 8], v[r:r + 8], sl)
+            assert (got_lse[r:r + 8] - ref_lse).abs().max() <= LSE_ATOL
+        else:
+            ref = sdpa_fp32(q[r:r + 8], k[r:r + 8], v[r:r + 8],
+                            mask=labels_to_dense(*sl)[:, :, :4096, :4280])
+        got = out[r:r + 8].float()
+        assert torch.isfinite(got).all()
+        assert (got - ref.float()).abs().max() <= REL_TOL * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_labeled_kernel_mixed_open_rows_on_card(dev):
+    """Open rows among closed ones in a warpgroup (positions 1000-1029 of
+    both samples, 3000-3099 of the second): that warpgroup takes the full
+    test on its word tiles; against plain, forward and lse."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    bits, open_ = _box_labels(dev, 64)
+    open_ = open_.clone()
+    open_[:, 1000:1030] = 1
+    open_[1, 3000:3100] = 1
+    q, k, v = (_heads(_rnd(g, dev, 2, s, 320), 8) for s in (4096, 4280, 4280))
+    out = fa.flash_attention(q, k, v, labels=(bits, open_))
+    out2, lse = fa.flash_attention_fwd_lse(q, k, v, (bits, open_))
+    ref, ref_lse = fa.flash_attention_fwd_lse_plain(q, k, v, (bits, open_))
+    for o in (out, out2):
+        assert (o.float() - ref.float()).abs().max() <= REL_TOL * ref.float().abs().max()
+    assert (lse - ref_lse).abs().max() <= LSE_ATOL
+
+
+@pytest.mark.cuda
+def test_labeled_kernel_graph_replays_bit_equal_on_card(dev):
+    """The plan and the kernel inside a CUDA graph (as the masked MIS
+    variant captures them): a replay on new q, k, v and labels equals the
+    eager call bit for bit, and adds to the tile counters as the eager call
+    does."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    labels = [_mis_mix_labels(dev)[0][:16].clone(), _mis_mix_labels(dev)[1][:16].clone()]
+    q, k, v = (_heads(_rnd(g, dev, 16, s, 320), 8) for s in (4096, 4280, 4280))
+    fa.flash_attention(q, k, v, labels=tuple(labels))  # warm-up: the counter, the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = fa.flash_attention(q, k, v, labels=tuple(labels))
+    new = [_rnd(g, dev, 16, s, 320) for s in (4096, 4280, 4280)]
+    other = fa.instance_labels(rasterize_boxes(torch.rand(16, 30, 4, device=dev).sort(-1)[0], 64),
+                               30, 64)
+    for t, src in zip((q, k, v), new):
+        t.copy_(_heads(src, 8))
+    for t, src in zip(labels, other):
+        t.copy_(src)
+    kernels.reset_launch_counts()
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed, counted = static_out.clone(), fa.label_tile_share()
+    kernels.reset_launch_counts()
+    eager = fa.flash_attention(q, k, v, labels=tuple(labels))
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
+    assert counted == fa.label_tile_share() and counted[1] == 16 * 32 * 34
+
+
+@pytest.mark.cuda
+def test_label_tile_share_counts_a_hand_built_case_on_card(dev):
+    """Two rows of 256 positions, 256 keys (2 q blocks x 2 tiles each): row
+    0 all open lists 4 tiles; row 1 holds instance 1 on positions 0-127 and
+    instance 2 on 128-255, nothing open, so each q block lists its own tile
+    alone: 6 of 8 tiles. A second call adds as much; reset_launch_counts
+    zeroes the pair."""
+    bits = torch.tensor([[0] * 256, [1] * 128 + [2] * 128], dtype=torch.int32, device=dev)
+    open_ = torch.tensor([[1] * 256, [0] * 256], dtype=torch.int32, device=dev)
+    q = _heads(_rnd(torch.Generator(device=dev).manual_seed(3), dev, 2, 256, 80), 2)
+    kernels.reset_launch_counts()
+    fa.flash_attention(q, q, q, labels=(bits, open_))
+    assert fa.label_tile_share() == (6, 8)
+    fa.flash_attention_fwd_lse(q, q, q, (bits, open_))
+    assert fa.label_tile_share() == (12, 16)
+    kernels.reset_launch_counts()
+    assert fa.label_tile_share() == (0, 0)
 
 
 @pytest.mark.cuda
@@ -466,7 +613,8 @@ def test_training_kernels_match_plain_on_card(dev, case):
     sfx = "" if labels is None else "_labeled"
     assert kernels.LAUNCHES == {f"flash_attention_trainable{sfx}": 1,
                                 f"flash_attention_bwd_dq{sfx}": 1,
-                                f"flash_attention_bwd_dkv{sfx}": 1}
+                                f"flash_attention_bwd_dkv{sfx}": 1,
+                                **({} if labels is None else {"flash_tile_plan": 1})}
     pout, plse = fa.flash_attention_fwd_lse_plain(q, k, v, labels)
     assert (out.float() - pout.float()).abs().max() <= REL_TOL * pout.float().abs().max()
     assert (lse - plse).abs().max() <= LSE_ATOL

@@ -17,6 +17,7 @@ and inner chunk is covered exactly once.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from instancediffusion_tpu_torch import kernels
 from instancediffusion_tpu_torch.kernels import flash_attention as fa
@@ -715,3 +716,206 @@ def test_merge_plan_stores_every_output_once():
     plan = hl.merge_plan(2, 333, 8, 40, 320, (8 * 333 * 40, 333 * 40, 40), max_clusters=4)
     got = np.sort(_head_store_offsets(plan, 320, 1, 333, (333 * 320, 0, 320, 320)))
     assert np.array_equal(got, np.arange(2 * 333 * 320))
+
+
+# ---------------------------------------------------------------------------
+# the labeled forward kernel's tile plan (`tile_plan_plain`, the pre-pass's
+# plain version) against the keep-mask of `labels_to_dense`
+# ---------------------------------------------------------------------------
+
+TILE = fa.TMA_BOX_ROWS
+META_BOXES = [[0.05, 0.35, 0.45, 0.90], [0.55, 0.30, 0.95, 0.90], [0.42, 0.05, 0.58, 0.25],
+              [0.02, 0.55, 0.98, 0.98]]
+
+
+def _boxes_labels(per_sample, size=64, n_objs=30, seg_tokens=64):
+    """instance_labels of one raster per sample: per_sample lists each
+    sample's boxes (an empty list: no instance, all open)."""
+    from instancediffusion_tpu_torch.ops.instance_mask import rasterize_boxes
+
+    boxes = torch.zeros(len(per_sample), n_objs, 4)
+    for i, bx in enumerate(per_sample):
+        if bx:
+            boxes[i, :len(bx)] = torch.tensor(bx)
+    return fa.instance_labels(rasterize_boxes(boxes, size), n_objs, seg_tokens)
+
+
+def _plan_case(name):
+    """(bits, open, n, kv_len) of each layout the plan must meet."""
+    if name == "one_instance":  # MIS trajectory rows: one instance each
+        return (*_boxes_labels([[META_BOXES[0]], [META_BOXES[3]]]), 4096, 4280)
+    if name == "four_instances":  # a global row beside a CFG null row
+        return (*_boxes_labels([META_BOXES, []]), 4096, 4280)
+    if name == "no_mask":  # no instance: open everywhere
+        return (*_boxes_labels([[], []]), 4096, 4280)
+    if name == "all_open":  # open everywhere, bits that share nothing
+        bits = torch.arange(2 * 4280, dtype=torch.int32).reshape(2, 4280) % 7 * 8
+        return bits, torch.ones(2, 4280, dtype=torch.int32), 4096, 4280
+    if name == "closed":  # nothing open, no instance: the diagonal alone
+        zeros = torch.zeros(2, 4280, dtype=torch.int32)
+        return zeros, zeros.clone(), 4096, 4280
+    if name == "background_q_blocks":  # the first 29 and 45 raster rows hold no instance
+        return (*_boxes_labels([[[0.45, 0.1, 0.9, 0.6]], [[0.7, 0.0, 1.0, 1.0]]]), 4096, 4280)
+    if name == "tile_edges":  # instance rows 16-31 and 48-63: tiles 8-15 and 24-31 exactly
+        return (*_boxes_labels([[[0.25, 0.0, 0.5, 1.0], [0.75, 0.0, 1.0, 1.0]],
+                                [[0.25, 0.0, 0.5, 1.0]]]), 4096, 4280)
+    if name == "pre_padded_kv_len":  # labels over 4608 keys, kv_len 4280
+        bits, open_ = _boxes_labels([META_BOXES, [META_BOXES[1]]])
+        return F.pad(bits, (0, 328)), F.pad(open_, (0, 328)), 4096, 4280
+    if name == "ds2_raster":  # 32x32 rasters, 1208 keys
+        return (*_boxes_labels([META_BOXES, [META_BOXES[2]]], size=32), 1024, 1208)
+    if name == "mixed_open_rows":  # open rows inside instance rows' warpgroups
+        bits, open_ = _boxes_labels([META_BOXES, [META_BOXES[2]]])
+        open_ = open_.clone()
+        open_[:, 1000:1030] = 1
+        open_[1, 3000:3100] = 1
+        return bits, open_, 4096, 4280
+    assert name == "rows_without_keys"  # rows 128-255 keep no key of the 128
+    pos = torch.arange(256)
+    bits = torch.where(pos < 128, 1, 4).int().expand(2, 256).contiguous()
+    return bits, torch.zeros(2, 256, dtype=torch.int32), 256, 128
+
+
+PLAN_CASES = ["one_instance", "four_instances", "no_mask", "all_open", "closed",
+              "background_q_blocks", "tile_edges", "pre_padded_kv_len", "ds2_raster",
+              "mixed_open_rows", "rows_without_keys"]
+
+
+def _dense_tiles(bits, open_, n, kv_len):
+    """(keep (B, qblocks*128, tiles*128) bool, its valid part (same shape))
+    from labels_to_dense."""
+    from instancediffusion_tpu_torch.ops.attention import labels_to_dense
+
+    qblocks, tiles = -(-n // TILE), -(-kv_len // TILE)
+    keep = labels_to_dense(bits, open_)[:, 0, :n, :kv_len]
+    pad = (0, tiles * TILE - kv_len, 0, qblocks * TILE - n)
+    valid = F.pad(torch.ones(n, kv_len, dtype=torch.bool), pad)
+    return F.pad(keep, pad), valid
+
+
+def _by_tile(t, qblocks, tiles):
+    return t.reshape(t.shape[0], qblocks, TILE, tiles, TILE).transpose(2, 3)
+
+
+def _walk_plan(plan, words, n, kv_len):
+    """The keep-mask the labeled kernel's steps compute from a plan and the
+    label words, each 64-row warpgroup on its own: the first step takes the
+    full test (kept iff open row, or (qw & kw) != 0, or the diagonal, below
+    kv_len); word tiles (qw & kw) != 0 where no row is open, nothing where
+    all are, the full test otherwise; full tiles nothing; the straddling
+    edge tile the full test, or kv_len alone where every row is open; tiles
+    left out keep nothing."""
+    b, qblocks, width = plan.shape
+    tiles = width - fa.PLAN_HEAD
+    span = max(qblocks, tiles) * TILE
+    w = F.pad(words, (0, max(0, span - words.shape[1])))[:, :span]
+    row = torch.arange(span)
+    q_open = (w < 0) & (row < n)  # rows past n are never open
+    q_test = w | fa.OPEN_BIT
+    keep = torch.zeros(b, qblocks * TILE, tiles * TILE, dtype=torch.bool)
+    for bi in range(b):
+        for qb in range(qblocks):
+            listed, word_end, full_end = plan[bi, qb, :3].tolist()
+            for wg in range(2):
+                rows = slice(qb * TILE + 64 * wg, qb * TILE + 64 * (wg + 1))
+                all_open, no_open = bool(q_open[bi, rows].all()), not q_open[bi, rows].any()
+                for pos, t in enumerate(plan[bi, qb, fa.PLAN_HEAD:fa.PLAN_HEAD + listed].tolist()):
+                    cols = slice(t * TILE, (t + 1) * TILE)
+                    below = (row[cols] < kv_len)[None, :]
+                    by_words = (q_test[bi, rows, None] & w[bi, None, cols]) != 0
+                    full_test = (by_words | q_open[bi, rows, None]
+                                 | (row[rows][:, None] == row[cols][None, :])) & below
+                    if pos == 0 or (pos >= full_end and not all_open):
+                        m = full_test
+                    elif pos >= full_end:
+                        m = below.expand(64, TILE)
+                    elif pos < word_end and no_open:
+                        m = by_words
+                    elif pos < word_end and not all_open:
+                        m = full_test
+                    else:
+                        m = torch.ones(64, TILE, dtype=torch.bool)
+                    keep[bi, rows, cols] = m
+    return keep[:, :n, :kv_len]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_tile_plan_lists_exactly_the_tiles_that_keep_a_score(case):
+    """The plan lists a key tile iff labels_to_dense keeps a score of the q
+    block in it; every full tile is wholly kept and below kv_len; edge tiles
+    hold the diagonal or straddle kv_len, word tiles neither; the parts run
+    the diagonal's edge tile, words, full, the straddling edge tile, each
+    ascending, and -1 fills the rest; walking the plan as the kernel does
+    gives labels_to_dense's mask exactly."""
+    bits, open_, n, kv_len = _plan_case(case)
+    plan = fa.tile_plan_plain(bits, open_, n, kv_len)
+    qblocks, tiles = -(-n // TILE), -(-kv_len // TILE)
+    assert plan.shape == (2, qblocks, tiles + fa.PLAN_HEAD) and plan.dtype == torch.int32
+    keep, valid = _dense_tiles(bits, open_, n, kv_len)
+    any_kept = _by_tile(keep, qblocks, tiles).any(-1).any(-1)
+    all_kept = (_by_tile(keep | ~valid, qblocks, tiles)).all(-1).all(-1)
+    straddle = kv_len % TILE != 0
+    for bi in range(2):
+        for qb in range(qblocks):
+            listed, word_end, full_end, zero = plan[bi, qb, :fa.PLAN_HEAD].tolist()
+            order = plan[bi, qb, fa.PLAN_HEAD:].tolist()
+            got = order[:listed]
+            assert zero == 0 and order[listed:] == [-1] * (tiles - listed)
+            assert sorted(got) == torch.nonzero(any_kept[bi, qb]).flatten().tolist()
+            lead = got[:1] if got and got[0] == qb and not all_kept[bi, qb, qb] else []
+            words, full = got[len(lead):word_end], got[word_end:full_end]
+            trail = got[full_end:]
+            assert words == sorted(words) and full == sorted(full) and len(trail) <= 1
+            assert all(all_kept[bi, qb, t] for t in full)
+            assert not (straddle and tiles - 1 in full)
+            assert trail == [] or (straddle and trail == [tiles - 1] != [qb])
+            assert not any(t == qb or (straddle and t == tiles - 1) for t in words)
+    walked = _walk_plan(plan, fa.label_words_plain(bits, open_), n, kv_len)
+    assert torch.equal(walked, keep[:, :n, :kv_len])
+
+
+def test_tile_plan_at_the_cells_mix():
+    """At the masked MIS call's mix (a four-instance row, one-instance rows,
+    a null row): the null row lists every tile, all full but the one
+    straddling 4280; a one-instance row lists about a quarter of its tiles;
+    background q blocks list the diagonal and the open tail (point, scribble
+    and seg tokens at 4126-4279, tiles 32-33) alone."""
+    bits, open_ = _boxes_labels([META_BOXES, [META_BOXES[0]], [[0.45, 0.1, 0.9, 0.6]], []])
+    plan = fa.tile_plan_plain(bits, open_, 4096, 4280)
+    null = plan[3]
+    assert (null[:, 0] == 34).all() and (null[:, 1] == 0).all() and (null[:, 2] == 33).all()
+    assert (null[:, fa.PLAN_HEAD:] == torch.arange(34)).all()
+    assert plan[1, :, 0].sum().item() == 278  # 25.6 % of 32 x 34
+    for qb in range(8):  # raster rows 0-15: no instance of sample 2 covers them
+        listed = plan[2, qb, 0].item()
+        assert sorted(plan[2, qb, fa.PLAN_HEAD:fa.PLAN_HEAD + listed].tolist()) == [qb, 32, 33]
+
+
+def test_label_words_set_bit_31_where_open():
+    bits = torch.tensor([[0, 5, 1 << 30, 3]], dtype=torch.int32)
+    open_ = torch.tensor([[1, 0, 1, 0]], dtype=torch.int32)
+    words = fa.label_words_plain(bits, open_)
+    assert words.dtype == torch.int32
+    assert words.tolist() == [[-(1 << 31), 5, (1 << 30) - (1 << 31), 3]]
+
+
+def test_instance_labels_leave_bit_31_clear():
+    """30 instances use bits 0-29 (bit 30 is GROUNDING_BIT); a 31st would
+    reach bit 31, which the label words reserve for "open", so it is
+    refused."""
+    bits, _ = fa.instance_labels(torch.ones(1, 30, 2, 2), 30, 1)
+    assert (bits >= 0).all() and bits[0, 0].item() == (1 << 30) - 1
+    with pytest.raises(ValueError, match="at most 30"):
+        fa.instance_labels(torch.ones(1, 31, 2, 2), 31, 1)
+
+
+def test_tile_plan_ignores_the_16_byte_row_padding():
+    """The CUDA route pads label rows to a multiple of 4 entries with closed,
+    bit-less positions past max(N, kv_len): the plan is the same."""
+    bits, open_ = _boxes_labels([META_BOXES, [META_BOXES[0]]])
+    bits, open_ = F.pad(bits, (0, 2), value=5), F.pad(open_, (0, 2), value=1)
+    pb, po = fa._padded_labels((bits, open_))
+    assert pb.shape == (2, 4284) and not pb[:, 4282:].any() and not po[:, 4282:].any()
+    assert torch.equal(fa.tile_plan_plain(pb, po, 4096, 4280),
+                       fa.tile_plan_plain(bits, open_, 4096, 4280))
+    assert torch.equal(fa.label_words_plain(pb, po)[:, :4282], fa.label_words_plain(bits, open_))

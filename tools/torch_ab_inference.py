@@ -27,6 +27,17 @@ only those. Prints one JSON line. Run it as parent, change, change, parent
 in one command. Imports no JAX.
 
     python3 tools/torch_ab_inference.py --root DIR --head-layout
+    python3 tools/torch_ab_inference.py --root DIR --attention
+
+`--attention` times only the forward attention kernels by device time: K1
+(ds1 self and fuser), K2 and K6 unlabeled, and the labeled kernel (K1-L) at
+B=16 with META's boxes on the 8 conditional rows, at the B=80 masked MIS
+call with META's boxes and with the layouts
+the benchmark's gen cell draws for requests 0-2 of seed 2147483659
+(`port_bench.harness.layouts`), and K6-L at B=4; each labeled case with its
+kept-pair exp2 bound and, where the checkout counts them, the share of key
+tiles its tile plans listed. The B=80 labels come from
+`chip_smoke.mis_mix_labels`, so `--attention` needs a checkout that has it.
 """
 
 from __future__ import annotations
@@ -132,6 +143,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--head-layout", action="store_true",
                     help="time only K8 / K8' and the FUSED_PROJ forward A/B")
+    ap.add_argument("--attention", action="store_true",
+                    help="time only the forward attention kernels, labeled and not")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -147,6 +160,11 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     rnd = lambda *s: torch.randn(s, generator=g, device=dev).bfloat16()
     out = {"tag": args.tag or args.root, "card": chip_smoke.card_line()}
+    if args.attention:
+        with torch.inference_mode():
+            time_attention(torch, dev, rnd, out)
+        print(json.dumps(out), flush=True)
+        return 0
     with torch.inference_mode():
         for name, kern, lib in head_layout_cases(torch, rnd):
             out[f"{name}_ms"] = device_ms(torch, kern)
@@ -174,6 +192,55 @@ def main() -> int:
         unet_lib.FUSED_PROJ = False
     print(json.dumps(out), flush=True)
     return 0
+
+
+def time_attention(torch, dev, rnd, out) -> None:
+    """The forward attention kernels, labeled and not (see the module
+    docstring); kept pairs from labels_to_dense in slices of 8 rows."""
+    import chip_smoke
+    from instancediffusion_tpu_torch import kernels
+    from instancediffusion_tpu_torch.kernels import flash_attention as fa
+    from instancediffusion_tpu_torch.ops.attention import labels_to_dense
+    from port_bench.harness import layouts
+
+    heads = lambda t, c: t.reshape(t.shape[0], t.shape[1], 8, c).transpose(1, 2)
+    clock = chip_smoke.max_sm_clock_hz()
+    share = getattr(fa, "label_tile_share", None)
+
+    def labeled(key, q, k, v, labels, lse=False):
+        n, m = q.shape[2], k.shape[2]
+        kept = sum(int(labels_to_dense(labels[0][r:r + 8], labels[1][r:r + 8])
+                       [:, :, :n, :m].sum()) for r in range(0, labels[0].shape[0], 8))
+        call = ((lambda: fa.flash_attention_fwd_lse(q, k, v, labels)) if lse
+                else (lambda: fa.flash_attention(q, k, v, labels=labels)))
+        out[f"{key}_ms"] = device_ms(torch, call)
+        out[f"{key}_exp_bound_ms"] = chip_smoke._exp_bound(8 * kept, clock)
+        if share is not None:
+            kernels.reset_launch_counts()
+            call()
+            listed, total = share()
+            out[f"{key}_tile_share"] = listed / total
+
+    q, k = heads(rnd(16, 4096, 320), 40), heads(rnd(16, 4280, 320), 40)
+    out["k1_b16_self_ms"] = device_ms(torch, lambda: fa.flash_attention(q, q, q))
+    out["k1_b16_fuser_ms"] = device_ms(torch, lambda: fa.flash_attention(q, k, k))
+    bits, open_ = chip_smoke.meta_labels(torch, dev, 64)
+    labeled("k1l_b16_meta", q, k, k,
+            (bits.repeat_interleave(8, 0), open_.repeat_interleave(8, 0)))
+    q80, k80 = heads(rnd(80, 4096, 320), 40), heads(rnd(80, 4280, 320), 40)
+    out["k1_b80_fuser_ms"] = device_ms(torch, lambda: fa.flash_attention(q80, k80, k80))
+    labeled("k1l_b80_meta_mix", q80, k80, k80, chip_smoke.mis_mix_labels(torch, dev))
+    for r in range(3):  # the gen cell's requests 0-2 at seed 2147483659
+        four = layouts.layout(layouts.rng(2147483659, 1, r), 4)["locations"]
+        labeled(f"k1l_b80_cell_r{r}", q80, k80, k80, chip_smoke.mis_mix_labels(torch, dev, four))
+    del q80, k80
+    p, pk = rnd(16, 1024, 640), rnd(16, 1208, 640)
+    out["k2_b16_self_ms"] = device_ms(torch, lambda: fa.flash_attention_packed(p, p, p, 8))
+    out["k2_b16_fuser_ms"] = device_ms(torch, lambda: fa.flash_attention_packed(p, pk, pk, 8))
+    tq, tk = heads(rnd(4, 4096, 320), 40), heads(rnd(4, 4280, 320), 40)
+    out["k6_b4_ds1_fuser_ms"] = device_ms(torch, lambda: fa.flash_attention_fwd_lse(tq, tk, tk))
+    labeled("k6l_b4_meta", tq, tk, tk,
+            (bits.repeat_interleave(2, 0), open_.repeat_interleave(2, 0)), lse=True)
 
 
 def time_kernels(torch, dev, g, rnd, out) -> None:
