@@ -71,18 +71,23 @@ def apply_clip_text(p: CLIPTextModel, input_ids: torch.Tensor) -> dict:
     # (the special tokens of the real vocabulary exceed reduced test tables)
     table = p.token_embedding
     x = table[input_ids.clamp(0, table.shape[0] - 1)] + p.position_embedding[:n]
+    # the residual stream is summed in fp32, each layer's input rounded to the
+    # compute dtype: a bf16 stream would round at each of the tower's adds
+    # (64 in bigG's 32 layers), the larger part of its outputs' error
+    dt = x.dtype
+    x = x.float()
     causal = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()[None, None]
     act = quick_gelu if getattr(p.cfg, "activation", "quick_gelu") == "quick_gelu" else nn.gelu
     penultimate = None
     for i, layer in enumerate(p.layers):
         if i == len(p.layers) - 1:
-            penultimate = x
-        h = nn.layer_norm(layer.ln1, x)
+            penultimate = x.to(dt)
+        h = nn.layer_norm(layer.ln1, x).to(dt)
         q, k, v = (nn.linear(lin, h) for lin in (layer.q, layer.k, layer.v))
         x = x + nn.linear(layer.out, multi_head_attention(q, k, v, heads, mask=causal))
-        h = nn.layer_norm(layer.ln2, x)
+        h = nn.layer_norm(layer.ln2, x).to(dt)
         x = x + nn.linear(layer.fc2, act(nn.linear(layer.fc1, h)))
-    x = nn.layer_norm(p.final_ln, x)
+    x = nn.layer_norm(p.final_ln, x).to(dt)
     eot = input_ids.argmax(dim=-1)
     pooled = x[torch.arange(b, device=x.device), eot]
     out = {"last_hidden_state": x, "pooler_output": pooled,

@@ -699,7 +699,9 @@ class InstanceDiffusionPipeline:
             labels = None if labels is None else tuple(rep(a) for a in labels)
             model_fn = self._cfg_model_fn(rep(ctx), rep(objs), labels,
                                           self._null_conditioning(uc), gs)
-            z0 = vae.vae_encode(self.vae, x_img.to(self.dtype), enc_noise.to(self.dtype)).float()
+            with span("encode"):
+                z0 = vae.vae_encode(self.vae, x_img.to(self.dtype),
+                                    enc_noise.to(self.dtype)).float()
             # forward-noise to the start step's alpha (float32, as the JAX graph)
             a0 = np.float32(sched.a_t[start])
             x = float(np.sqrt(a0)) * z0 + float(np.sqrt(np.float32(1.0) - a0)) * q_noise

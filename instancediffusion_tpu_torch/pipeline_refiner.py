@@ -153,7 +153,8 @@ class SDXLRefinerPipeline:
                 return e_u + gs * (e_c - e_u)
 
         with span("sample"):
-            z = vae.vae_encode_mode(self.vae, x_img.to(self.dtype)).float()
+            with span("encode"):
+                z = vae.vae_encode_mode(self.vae, x_img.to(self.dtype)).float()
             a0 = np.float32(sched.a_t[0])
             x = float(np.sqrt(a0)) * z + float(np.sqrt(np.float32(1.0) - a0)) * noise_t
             x0 = ddim_sample(model_fn, sched, x)

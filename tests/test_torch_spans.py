@@ -1,10 +1,11 @@
 """The program's spans (`instancediffusion_tpu_torch/utils/logging.span`) on
 the CPU: a torch.profiler session over a tiny masked MIS `generate` records
 them nested as the layers nest (request, program, sampler step, UNet
-forward, fuser, attention, FF) and as many as the call makes; without a
-session they record nothing and leave the images and `last_timings` as
-they are. Also the span breakdown of `tools/torch_span_breakdown.py` on
-synthetic traces, beside the harness's own reduction of the same events."""
+forward, fuser, attention, FF) and as many as the call makes, and a tiny
+refine its VAE encode inside its program; without a session they record
+nothing and leave the images and `last_timings` as they are. Also the span
+breakdown of `tools/torch_span_breakdown.py` on synthetic traces, beside
+the harness's own reduction of the same events."""
 
 import importlib.util
 from pathlib import Path
@@ -16,6 +17,8 @@ import torch
 import chip_smoke
 from instancediffusion_tpu_torch.config import (
     Config,
+    OpenCLIPTextConfig,
+    RefinerUNetConfig,
     TextEncoderConfig,
     UNetConfig,
     UniFusionConfig,
@@ -23,6 +26,7 @@ from instancediffusion_tpu_torch.config import (
 )
 from instancediffusion_tpu_torch.models.unet import TransformerBlock
 from instancediffusion_tpu_torch.pipeline import InstanceDiffusionPipeline
+from instancediffusion_tpu_torch.pipeline_refiner import SDXLRefinerPipeline
 from instancediffusion_tpu_torch.utils import logging as obs
 from port_bench.harness import trace
 
@@ -135,6 +139,38 @@ def test_program_spans_nest_and_count(pipe):
     # self, cross, and the fuser's attention; the block's FF and the fuser's
     assert count("attn") == blocks * (2 * len(gates) + open_)
     assert count("ff") == blocks * (len(gates) + open_)
+
+
+def test_refine_encodes_inside_its_program_span(monkeypatch):
+    """A profiled tiny refine records `idt.encode` (the VAE encode) inside
+    `idt.sample`, once; without a session it opens no range."""
+    monkeypatch.setenv("IDTPU_ALLOW_HASH_TOKENIZER", "1")  # no BPE files here
+    rp = SDXLRefinerPipeline.random_init(
+        seed=0, device="cpu", dtype=torch.float32,
+        unet_cfg=RefinerUNetConfig(image_size=4, model_channels=32, channel_mult=(1, 2),
+                                   num_res_blocks=1, attention_resolutions=(2,),
+                                   num_head_channels=16, transformer_depth=1, context_dim=32,
+                                   adm_in_channels=32 + 5 * 256),
+        text_cfg=OpenCLIPTextConfig(vocab_size=512, hidden_size=32, intermediate_size=64,
+                                    num_hidden_layers=2, num_attention_heads=4,
+                                    projection_dim=32),
+        vae_cfg=VAEConfig(scale_factor=0.13025, ch=32, ch_mult=(1, 1, 1, 1), num_res_blocks=1))
+    images = np.random.default_rng(0).uniform(size=(2, 32, 32, 3)).astype(np.float32)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        rp.refine(images, "a fox", strength=0.35, steps=20)
+    spans = [e for e in prof.events() if e.name.startswith(obs.SPAN_PREFIX)]
+    parents = {}
+    for e in spans:
+        p = _idt_parent(e)
+        parents.setdefault(e.name, set()).add(None if p is None else p.name)
+    assert parents["idt.encode"] == {"idt.sample"}
+    assert parents["idt.decode"] == {"idt.sample"} and parents["idt.step"] == {"idt.sample"}
+    assert sum(e.name == "idt.encode" for e in spans) == 1
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: opened.append(name) or obs._OFF)
+    rp.refine(images, "a fox", strength=0.35, steps=20)
+    assert opened == []
 
 
 def test_no_session_same_timings_and_images(pipe):
